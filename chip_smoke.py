@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (isogs_slam_tpu_torch) on one
+NVIDIA card.
+
+Phases, in order (each prints its elapsed time; any failure exits non-zero
+before the result line):
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from csrc/ with nvcc (one process per source,
+     all at once) and print ptxas' registers / shared memory / spills;
+  3. hold every kernel against its plain PyTorch version at the main
+     path's shapes, on inputs from a real render of the synthetic room at
+     1200x680: composite forward/backward at K = 256 (tracking) and
+     K = 512 (mapping, bf16 backward), segment reduce at N = capacity;
+     time kernel, plain version and (segment reduce) torch.segment_reduce;
+  4. the main path: first-frame init, then frames 1-5 of bench.py's
+     per-frame step (tracking from the ground-truth pose, densify + 40
+     mapping iterations at frame 4), with the kernels' launch counters set
+     to 0 before and read after;
+  5. the `kernels` JSON line;
+  6. the result line {"ok": true, "device": {...}}.
+
+Run from the repository root: python3 chip_smoke.py
+(`--profile` adds a torch.profiler table of one more tracking frame and
+mapping phase after phase 4.)
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+H, W = 680, 1200
+TRACK_ITERS, MAP_ITERS, MAP_EVERY, N_FRAMES = 10, 40, 5, 5
+PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+SOURCES = {"composite_fwd": "isogs_slam_tpu_torch/csrc/composite.cu",
+           "composite_bwd": "isogs_slam_tpu_torch/csrc/composite.cu",
+           "segreduce": "isogs_slam_tpu_torch/csrc/segreduce.cu"}
+REPLACES = {
+    "composite_fwd": "isogs_slam_tpu/ops/pallas_composite.py:498",
+    "composite_bwd": "isogs_slam_tpu/ops/pallas_composite.py:539",
+    "segreduce": "isogs_slam_tpu/ops/segreduce.py:88"}
+
+
+def phase(name, t0):
+    print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def cuda_ms(fn, reps, warm=1):
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def bound(nbytes, ops):
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def pair_counts(gdata, counts, tiles_x, chunk=32):
+    """(evaluated, included) (slot, pixel) pairs of this input: a pixel
+    evaluates slots up to its termination slot (or its tile's count)."""
+    import torch
+    from isogs_slam_tpu_torch.ops.composite import (ALPHA_MAX, ALPHA_MIN,
+                                                    T_EPS, TILE)
+    T, K, _ = gdata.shape
+    ev = inc = 0
+    px = torch.arange(TILE, device=gdata.device, dtype=torch.float32)
+    for s in range(0, T, chunk):
+        g = gdata[s:s + chunk]
+        tid = torch.arange(s, s + g.shape[0], device=gdata.device)
+        x = ((tid % tiles_x) * TILE)[:, None] + px.repeat(TILE)[None]
+        y = ((tid // tiles_x) * TILE)[:, None] + px.repeat_interleave(
+            TILE)[None]
+        dx = g[..., 0:1] - x[:, None, :]
+        dy = g[..., 1:2] - y[:, None, :]
+        power = (-0.5 * (g[..., 2:3] * dx * dx + g[..., 4:5] * dy * dy)
+                 - g[..., 3:4] * dx * dy)
+        alpha = torch.clamp(g[..., 5:6] * torch.exp(power), max=ALPHA_MAX)
+        cnt = counts[s:s + chunk].long()
+        valid = torch.arange(K, device=g.device)[None, :] < cnt[:, None]
+        contrib = (power <= 0) & (alpha >= ALPHA_MIN) & valid[..., None]
+        one_m = 1 - torch.where(contrib, alpha, torch.zeros_like(alpha))
+        t_excl = torch.cumprod(one_m, 1) / one_m
+        include = contrib & (t_excl * one_m >= T_EPS)
+        fail = contrib & ~include
+        first = torch.where(fail.any(1), fail.float().argmax(1) + 1,
+                            cnt[:, None].expand(-1, fail.shape[2]))
+        ev += int(first.sum())
+        inc += int(include.sum())
+    return ev, inc
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        import isogs_slam_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing ({e}); run "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 3
+    import numpy as np
+    from isogs_slam_tpu_torch.core.gaussians import round_capacity
+    from isogs_slam_tpu_torch.datasets.synthetic import SyntheticDataset
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.ops import composite as comp
+    from isogs_slam_tpu_torch.ops.rasterize import (
+        RasterConfig, _slot_gdata, bin_gaussians, gather_raw_table,
+        project_gaussians)
+    from isogs_slam_tpu_torch.ops.segreduce import (
+        segment_reduce_rows_cuda, segment_reduce_rows_plain)
+    from isogs_slam_tpu_torch.slam.losses import LossConfig
+    from isogs_slam_tpu_torch.slam.mapping import (MappingConfig,
+                                                   PruneConfig, map_frame)
+    from isogs_slam_tpu_torch.slam.pointcloud import (add_new_gaussians,
+                                                      initialize_first_frame)
+    from isogs_slam_tpu_torch.slam.tracking import (TrackingConfig,
+                                                    track_frame)
+    from isogs_slam_tpu_torch.utils.transforms import (rotmat_to_quat,
+                                                       transform_to_frame)
+    dev = torch.device("cuda")
+
+    # 1. the card
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    phase("card", t0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _cuda.build()
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "smem")):
+                print(f"[ptxas {name}] {line.strip()}")
+    phase("build", t0)
+
+    # the Replica-config slice (bench.py:99-150)
+    ds = SyntheticDataset(num_frames=N_FRAMES + 2, height=H, width=W,
+                          n_per_wall=max(400, (H * W) // 40), device=dev)
+    cam = ds.cam
+    capacity = round_capacity(int(H * W * 1.5), 65536)
+    rcfg = RasterConfig(max_per_tile=512)
+    rcfg_track = rcfg._replace(max_per_tile=256)
+    lcfg_track = LossConfig(
+        tracking=True, use_sil_for_loss=True, sil_thres=0.99, use_l1=True,
+        ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0, w_flat=0.0,
+        w_iso=0.0, calc_iso=False, sil_norm_render=True)
+    lcfg_map = LossConfig(
+        tracking=False, use_sil_for_loss=False, sil_thres=0.5, use_l1=True,
+        ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0, w_flat=50.0,
+        w_iso=2.0, iso_sample_size=8192, iso_k=16, calc_iso=True,
+        knn_block=8192)
+    tcfg = TrackingConfig(num_iters=TRACK_ITERS, lr_quat=0.0004,
+                          lr_trans=0.002)
+    mcfg = MappingConfig(
+        num_iters=MAP_ITERS, lr_means3d=0.0001, lr_rgb_colors=0.0025,
+        lr_unnorm_rotations=0.001, lr_logit_opacities=0.05,
+        lr_log_scales=0.001,
+        prune=PruneConfig(True, 0, 0, 20, 20, 0.005, 0.005, False, 500))
+
+    def frame(i):
+        color, depth, _, pose = ds[i]
+        im = torch.as_tensor(color, device=dev).permute(2, 0, 1) / 255.0
+        d = torch.as_tensor(depth, device=dev).permute(2, 0, 1)
+        w2c = np.linalg.inv(np.asarray(pose, np.float64))
+        q = rotmat_to_quat(torch.as_tensor(w2c[:3, :3], dtype=torch.float32))
+        return (im.contiguous(), d.contiguous(), q.to(dev),
+                torch.as_tensor(w2c[:3, 3], dtype=torch.float32, device=dev))
+
+    t0 = time.perf_counter()
+    frames = [frame(i) for i in range(N_FRAMES + 1)]
+    torch.cuda.synchronize()
+    phase("dataset render", t0)
+
+    # 3. each kernel against its plain version on a real render's inputs
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    im0, d0, q0, t0_ = frames[0]
+    state0 = initialize_first_frame(im0, d0, cam, capacity, 3.0,
+                                    generator=gen, device=dev)
+    p0 = state0.params
+    results = {}
+    rng = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        # tracking records (K = 256): frame 1's slot table at its GT pose
+        q1, t1 = frames[1][2], frames[1][3]
+        mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations, q1, t1,
+                                    gaussians_grad=False, camera_grad=False)
+        b_tr = bin_gaussians(project_gaussians(mc, qc, p0.log_scales,
+                                               state0.alive, cam,
+                                               margin_px=8.0),
+                             cam, rcfg_track)
+        g_tr = _slot_gdata(gather_raw_table(p0, b_tr.tile_gauss), q1, t1,
+                           cam).contiguous()
+        # mapping records (K = 512): the fused table at keyframe 0's pose
+        mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations, q0,
+                                    t0_, gaussians_grad=False,
+                                    camera_grad=False)
+        proj = project_gaussians(mc, qc, p0.log_scales, state0.alive, cam)
+        b_map = bin_gaussians(proj, cam, rcfg, emit_exp=True)
+        op = torch.where(proj.valid,
+                         torch.sigmoid(p0.logit_opacities[:, 0]),
+                         torch.zeros_like(proj.u))
+        table = torch.stack([proj.u, proj.v, proj.conic[:, 0],
+                             proj.conic[:, 1], proj.conic[:, 2], op,
+                             p0.rgb_colors[:, 0], p0.rgb_colors[:, 1],
+                             p0.rgb_colors[:, 2], mc[:, 2]], dim=1)
+        g_map = table[b_map.tile_gauss].contiguous()
+
+        for tag, g, b, bdt in (("track", g_tr, b_tr, torch.float32),
+                               ("map", g_map, b_map, torch.bfloat16)):
+            T, K, C = g.shape
+            cnt = b.tile_count
+            tx = cam.tiles_x
+            print(f"[{tag}] gdata {tuple(g.shape)} slots "
+                  f"{int(cnt.sum())} max count {int(cnt.max())}")
+            out, ft, last, tend = comp.composite_fwd_cuda(g, cnt, 4, tx, 3)
+            out_p, ft_p = comp.composite_fwd_plain(g, cnt, 4, tx, 3,
+                                                   chunk=32)
+            err_o = (out - out_p).abs()
+            err_f = (ft - ft_p).abs()
+            fwd_err = max(float(err_o.max()), float(err_f.max()))
+            # images 1e-5 of their range; a pixel where a threshold test
+            # (alpha >= 1/255, T (1 - alpha) >= 1e-4) flips between the
+            # two summation orders may differ by that one slot's weight
+            tol = 1e-5 * max(1.0, float(out_p.abs().max()))
+            bad = int((err_o > tol).any(-1).sum() + (err_f > 1e-5).sum())
+            print(f"[{tag}] composite_fwd max_abs_err {fwd_err:.3e} "
+                  f"(tol {tol:.1e}); pixels over tol {bad} of {T * 256}")
+            if bad > max(2, 1e-5 * T * 256) or not np.isfinite(fwd_err):
+                raise AssertionError(f"composite_fwd disagrees ({tag})")
+
+            gout = torch.randn(out.shape, generator=rng, device=dev)
+            dfin = torch.randn(ft.shape, generator=rng, device=dev)
+            dg = comp.composite_bwd_cuda(g, cnt, gout, dfin, last, tend, 4,
+                                         tx, 3, bdt)
+            dg_p = comp.composite_bwd_plain(g, cnt, gout, dfin, 4, tx, 3,
+                                            chunk=32)
+            diff = (dg.float() - dg_p.to(bdt).float()).abs()
+            bwd_err = float(diff.max())
+            scale = dg_p.abs().amax(dim=(0, 1))
+            rel = float((diff.amax(dim=(0, 1)) / scale.clamp(min=1e-30))
+                        .max())
+            # f32: 1e-4 of each column's max (the reference's gradient
+            # tolerance); bf16: one bf16 rounding (2^-8) of the column max
+            btol = 1e-4 if bdt == torch.float32 else 2 ** -7
+            print(f"[{tag}] composite_bwd ({bdt}) max_abs_err "
+                  f"{bwd_err:.3e}; max error / column max {rel:.3e} "
+                  f"(tol {btol:.1e})")
+            if not rel < btol:
+                raise AssertionError(f"composite_bwd disagrees ({tag})")
+
+            ev, inc = pair_counts(g, cnt, tx)
+            slots_b = int(cnt.sum()) * C * 4
+            fo = 5
+            fwd_bytes = slots_b + T * 4 + T * 256 * (fo + 1) * 4
+            fwd_ops = 15 * ev + (5 + 2 * fo) * inc
+            bwd_bytes = (slots_b + T * 4 + T * 256 * (fo + 1) * 4
+                         + T * K * C * dg.element_size())
+            bwd_ops = (45 + 3 * fo + C) * inc
+            ms_f = cuda_ms(lambda: comp.composite_fwd_cuda(g, cnt, 4, tx, 3),
+                           20)
+            pms_f = cuda_ms(lambda: comp.composite_fwd_plain(
+                g, cnt, 4, tx, 3, chunk=32), 2)
+            ms_b = cuda_ms(lambda: comp.composite_bwd_cuda(
+                g, cnt, gout, dfin, last, tend, 4, tx, 3, bdt), 20)
+            pms_b = cuda_ms(lambda: comp.composite_bwd_plain(
+                g, cnt, gout, dfin, 4, tx, 3, chunk=32), 2)
+            print(f"[{tag}] pairs evaluated {ev} included {inc}")
+            for name, err, ms, pms, nb, no in (
+                    ("composite_fwd", fwd_err, ms_f, pms_f, fwd_bytes,
+                     fwd_ops),
+                    ("composite_bwd", bwd_err, ms_b, pms_b, bwd_bytes,
+                     bwd_ops)):
+                bms, by = bound(nb, no)
+                results[f"{name}[K={K}]"] = dict(
+                    kernel=name, max_abs_err=err, ms=ms, plain_ms=pms,
+                    bound_ms=bms, bound_by=by, library_ms=None)
+                print(f"[{tag}] {name}[K={K}] {ms:.4f} ms (plain {pms:.2f} "
+                      f"ms, bound {bms:.4f} ms by {by})")
+            if tag == "map":
+                dg_map = dg
+
+        # segment reduce at N = capacity on kernel B's bf16 rows written
+        # back in expansion order (the mapping backward's input)
+        M = rcfg.max_isect(capacity)
+        d_exp = torch.zeros((M + 1, 10), dtype=torch.bfloat16, device=dev)
+        d_exp[b_map.slot_exp_pos.reshape(-1)] = dg_map.reshape(-1, 10)
+        offs = b_map.exp_offsets
+        seg = segment_reduce_rows_cuda(d_exp, offs)
+        seg_p = segment_reduce_rows_plain(d_exp, offs)
+        seg_err = float((seg - seg_p).abs().max())
+        # f32 sums in another order: within a few f32 roundings of each
+        # segment's absolute sum
+        abs_sum = segment_reduce_rows_plain(d_exp.float().abs(), offs)
+        seg_ok = bool(torch.all((seg - seg_p).abs() <= 1e-6 * abs_sum
+                                + 1e-7))
+        print(f"segreduce N {offs.shape[0] - 1} rows {int(offs[-1])} "
+              f"max_abs_err {seg_err:.3e} (tol 1e-6 of each segment's "
+              f"absolute sum)")
+        if not seg_ok:
+            raise AssertionError("segreduce disagrees")
+        E = int(offs[-1])
+        lengths = (offs[1:] - offs[:-1]).long()
+        ms_c = cuda_ms(lambda: segment_reduce_rows_cuda(d_exp, offs), 20)
+        pms_c = cuda_ms(lambda: segment_reduce_rows_plain(d_exp, offs), 5)
+        lib_in = d_exp[:E]
+        try:
+            torch.segment_reduce(lib_in, "sum", lengths=lengths, axis=0)
+            lib_note = "bf16 input"
+        except RuntimeError:
+            lib_in = lib_in.float()
+            lib_note = "f32 copy of the input (bf16 not supported)"
+        lib_c = cuda_ms(lambda: torch.segment_reduce(
+            lib_in, "sum", lengths=lengths, axis=0), 20)
+        n_seg = offs.shape[0] - 1
+        bms, by = bound(E * 10 * 2 + (n_seg + 1) * 4 + 10 * n_seg * 4,
+                        E * 10)
+        results["segreduce"] = dict(
+            kernel="segreduce", max_abs_err=seg_err, ms=ms_c,
+            plain_ms=pms_c, bound_ms=bms, bound_by=by, library_ms=lib_c)
+        print(f"segreduce {ms_c:.4f} ms (plain {pms_c:.2f} ms, "
+              f"torch.segment_reduce {lib_c:.4f} ms on {lib_note}, bound "
+              f"{bms:.4f} ms by {by})")
+    del state0, p0, g_tr, g_map, table, d_exp, dg_map
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase("kernels vs plain", t0)
+
+    # 4. the main path: bench.py's per-frame step, launch counters from 0
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rng_np = np.random.default_rng(0)
+    im0, d0, q0, t0_ = frames[0]
+    state = initialize_first_frame(im0, d0, cam, capacity, 3.0,
+                                   generator=gen, device=dev)
+    S = 6
+    kf_colors = torch.zeros((S, H, W, 3), dtype=torch.uint8, device=dev)
+    kf_depths = torch.zeros((S, H, W), device=dev)
+    kf_quats = torch.zeros((S, 4), device=dev)
+    kf_trans = torch.zeros((S, 3), device=dev)
+
+    def set_kf(slot, im, d, q, t):
+        kf_colors[slot] = (im.permute(1, 2, 0) * 255).to(torch.uint8)
+        kf_depths[slot] = d[0]
+        kf_quats[slot] = q
+        kf_trans[slot] = t
+
+    set_kf(0, im0, d0, q0, t0_)
+    torch.cuda.synchronize()
+    print(f"init: {int(state.num_alive())} Gaussians, capacity {capacity}")
+    last_track = last_map = None
+    for i in range(1, N_FRAMES + 1):
+        im, d, q_gt, t_gt = frames[i]
+        tf = time.perf_counter()
+        res = track_frame(state.params, state.alive, q_gt, t_gt, im, d, cam,
+                          rcfg_track, lcfg_track, tcfg)
+        torch.cuda.synchronize()
+        t_track = time.perf_counter() - tf
+        last_track = res.loss_log[res.iters_run - 1]
+        qn = res.quat / res.quat.norm()
+        ang = 2 * torch.acos(torch.clamp(torch.abs(torch.dot(
+            qn, q_gt / q_gt.norm())), max=1.0))
+        terr = float((res.trans - t_gt).norm())
+        t_map = 0.0
+        if (i + 1) % MAP_EVERY == 0:
+            tm = time.perf_counter()
+            state = add_new_gaussians(state, im, d, res.quat, res.trans,
+                                      float(i), cam, rcfg, sil_thres=0.5,
+                                      generator=gen)
+            slot = (i // MAP_EVERY) % (S - 1) + 1
+            set_kf(slot, im, d, res.quat, res.trans)
+            iter_slots = rng_np.integers(0, min(slot + 1, S), size=MAP_ITERS)
+            state, mlog, bstats = map_frame(state, kf_colors, kf_depths,
+                                            kf_quats, kf_trans, iter_slots,
+                                            cam, rcfg, lcfg_map, mcfg,
+                                            generator=gen)
+            torch.cuda.synchronize()
+            t_map = time.perf_counter() - tm
+            last_map = mlog[-1]
+            print(f"frame {i}: mapping bin stats (true overflow, isect, "
+                  f"max isect) {[int(x) for x in bstats]}")
+        print(f"frame {i}: track {t_track:.3f} s, map {t_map:.3f} s, "
+              f"{int(state.num_alive())} Gaussians, pose error "
+              f"{terr * 100:.4f} cm / {float(ang) * 180 / np.pi:.5f} deg, "
+              f"tracking loss {float(last_track[0]):.4f} "
+              f"(mask {float(last_track[6]):.3f})")
+    launches = dict(_cuda.LAUNCHES)
+    print(f"final mapping loss terms (loss, im, depth, flat, iso, "
+          f"density, mask) {[round(float(x), 6) for x in last_map]}")
+    print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB; launches on the main path {launches}")
+    phase("main path (init + 5 frames)", t0)
+    finite = (torch.isfinite(last_track).all()
+              and torch.isfinite(last_map).all()
+              and all(torch.isfinite(p).all() for p in state.params))
+    if not finite:
+        raise AssertionError("non-finite losses or parameters")
+
+    if "--profile" in sys.argv[1:]:
+        # where one more tracking frame and one more mapping phase spend
+        # their time (not part of the default run)
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        im, d, q_gt, t_gt = frames[N_FRAMES]
+        iter_slots = rng_np.integers(0, 2, size=MAP_ITERS)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tw = time.perf_counter()
+            track_frame(state.params, state.alive, q_gt, t_gt, im, d, cam,
+                        rcfg_track, lcfg_track, tcfg)
+            torch.cuda.synchronize()
+            t_tr = time.perf_counter() - tw
+            tw = time.perf_counter()
+            map_frame(state, kf_colors, kf_depths, kf_quats, kf_trans,
+                      iter_slots, cam, rcfg, lcfg_map, mcfg, generator=gen)
+            torch.cuda.synchronize()
+            t_mp = time.perf_counter() - tw
+        ka = prof.key_averages()
+        # device busy time: the kernels' own events (an operator's row
+        # would count its kernels a second time)
+        dev_s = sum(e.device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        print(ka.table(sort_by="self_device_time_total", row_limit=30,
+                       max_name_column_width=60))
+        print(f"profile: tracking frame {t_tr:.3f} s, mapping phase "
+              f"{t_mp:.3f} s (wall, profiler on); device time "
+              f"{dev_s:.3f} s = {dev_s / (t_tr + t_mp):.3f} of the wall "
+              f"time")
+        phase("profile", t0)
+
+    # 5. kernels line
+    kernels = []
+    for key, r in results.items():
+        n = launches.get(key, 0)
+        if n <= 0:
+            raise AssertionError(f"{key} was not launched on the main path")
+        kernels.append({
+            "name": key, "route": "cuda", "source": SOURCES[r["kernel"]],
+            "replaces": REPLACES[r["kernel"]], "launches": n,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    phase("total", t_start)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,201 @@
+"""The tracking/mapping loss (counterpart of isogs_slam_tpu/slam/losses.py,
+main path).
+
+tracking: masked L1 *sums* over {valid depth & not nan & silhouette > thres}
+mapping:  depth L1 mean over the valid mask; im = 0.8 L1 + 0.2 (1 - SSIM);
+          + IsoGS flat (w=50) and iso (w=2) regularizers
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core.camera import Camera
+from ..core.gaussians import GaussianParams
+from ..ops.iso_loss import IsoKnnPool, flat_loss, iso_surface_loss
+from ..ops.rasterize import (MAPPING_LIVE_COLS, TRACKING_LIVE_COLS,
+                             RasterConfig, render_rgbd_sil,
+                             render_rgbd_sil_slots)
+from ..ops.ssim import calc_ssim
+from ..utils.transforms import transform_to_frame
+
+
+class LossConfig(NamedTuple):
+    tracking: bool
+    use_sil_for_loss: bool
+    sil_thres: float
+    use_l1: bool
+    ignore_outlier_depth_loss: bool
+    w_im: float
+    w_depth: float
+    w_flat: float = 50.0
+    w_iso: float = 2.0
+    iso_sample_size: int = 8192
+    iso_k: int = 16
+    iso_target: float = 1.0
+    calc_iso: bool = True
+    knn_block: int = 8192
+    knn_method: str = "hash"   # only "hash" is ported
+    hash_cap: int = 24
+    hash_table_size: int = 0
+    iso_pool_size: int = 32768  # > 0 required (the pooled-KNN path)
+    # silhouette-normalized tracking render (rgb, depth, depth^2 divided
+    # by max(silhouette, 1e-6)), the reference's tracking default
+    sil_norm_render: bool = False
+
+    def check_ported(self):
+        if self.calc_iso and not self.tracking:
+            if self.knn_method != "hash":
+                raise NotImplementedError(
+                    "LossConfig.knn_method='exact' is not ported yet")
+            if self.iso_pool_size <= 0:
+                raise NotImplementedError(
+                    "LossConfig.iso_pool_size=0 (fresh KNN per iteration) "
+                    "is not ported yet")
+
+
+class LossOutputs(NamedTuple):
+    loss: torch.Tensor
+    im: torch.Tensor
+    depth: torch.Tensor
+    flat: torch.Tensor
+    iso: torch.Tensor
+    mean_density: torch.Tensor
+    radii: torch.Tensor
+    n_overflow: torch.Tensor
+    mask_frac: torch.Tensor
+
+
+def _photometric_terms(im, depth, silhouette, depth_sq, gt_im, gt_depth,
+                       lcfg: LossConfig):
+    """Masks + RGB/depth loss terms. Returns (loss_im, loss_depth, mask)."""
+    tracking = lcfg.tracking
+    if tracking and lcfg.sil_norm_render:
+        s = torch.clamp(silhouette, min=1e-6)[None]
+        im = im / s
+        depth = depth / s
+        depth_sq = depth_sq / s
+    uncertainty = (depth_sq - depth * depth).detach()
+    presence_sil_mask = silhouette > lcfg.sil_thres
+
+    nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
+    if lcfg.ignore_outlier_depth_loss:
+        depth_error = torch.abs(gt_depth - depth) * (gt_depth > 0)
+        mask = ((depth_error < 10 * _median(depth_error))
+                & (gt_depth > 0))
+    else:
+        mask = gt_depth > 0
+    mask = mask & nan_mask
+    if tracking and lcfg.use_sil_for_loss:
+        mask = mask & presence_sil_mask[None]
+    mask = mask.detach()
+
+    zero_d = torch.zeros_like(depth)
+    d_abs = torch.abs(gt_depth - depth)
+    if lcfg.use_l1:
+        if tracking:
+            loss_depth = torch.sum(torch.where(mask, d_abs, zero_d))
+        else:
+            cnt = torch.clamp(torch.sum(mask.to(d_abs.dtype)), min=1.0)
+            loss_depth = torch.sum(torch.where(mask, d_abs, zero_d)) / cnt
+    else:
+        loss_depth = torch.zeros((), device=d_abs.device)
+
+    im_abs = torch.abs(gt_im - im)
+    if tracking and (lcfg.use_sil_for_loss or lcfg.ignore_outlier_depth_loss):
+        color_mask = mask.expand(im.shape)
+        loss_im = torch.sum(torch.where(color_mask, im_abs,
+                                        torch.zeros_like(im_abs)))
+    elif tracking:
+        loss_im = torch.sum(im_abs)
+    else:
+        loss_im = 0.8 * im_abs.mean() + 0.2 * (1.0 - calc_ssim(im, gt_im))
+    return loss_im, loss_depth, mask
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """numpy/jnp median: the mean of the two middle values for even n
+    (torch.median returns the lower one)."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.shape[0]
+    if n % 2:
+        return s[n // 2]
+    return 0.5 * (s[n // 2 - 1] + s[n // 2])
+
+
+def compute_loss_slots(raw, counts, cam_quat, cam_trans, gt_im, gt_depth,
+                       cam: Camera, rcfg: RasterConfig,
+                       lcfg: LossConfig) -> LossOutputs:
+    """Tracking loss via the frozen slot-table render (pose is the only
+    gradient leaf)."""
+    assert lcfg.tracking
+    im, depth, silhouette, depth_sq, _ = render_rgbd_sil_slots(
+        raw, counts, cam_quat, cam_trans, cam, rcfg)
+    loss_im, loss_depth, mask = _photometric_terms(
+        im, depth, silhouette, depth_sq, gt_im, gt_depth, lcfg)
+    z = torch.zeros((), device=im.device)
+    return LossOutputs(loss=lcfg.w_im * loss_im + lcfg.w_depth * loss_depth,
+                       im=lcfg.w_im * loss_im,
+                       depth=lcfg.w_depth * loss_depth, flat=z, iso=z,
+                       mean_density=z,
+                       radii=torch.zeros(1, dtype=torch.int32,
+                                         device=im.device),
+                       n_overflow=torch.zeros((), dtype=torch.int64,
+                                              device=im.device),
+                       mask_frac=torch.mean(mask.to(torch.float32)))
+
+
+def _isogs_terms(params: GaussianParams, alive, lcfg: LossConfig,
+                 iso_pool: IsoKnnPool | None, iso_sel, generator):
+    loss_flat = flat_loss(params.log_scales, alive)
+    if lcfg.calc_iso:
+        if iso_pool is None:
+            raise ValueError("the iso loss needs the phase's IsoKnnPool")
+        loss_iso, mean_density = iso_surface_loss(
+            params.means3d, params.unnorm_rotations, params.log_scales,
+            params.logit_opacities, alive, iso_pool,
+            sample_size=lcfg.iso_sample_size,
+            target_saturation=lcfg.iso_target, sel=iso_sel,
+            generator=generator)
+    else:
+        loss_iso = torch.zeros((), device=alive.device)
+        mean_density = torch.zeros((), device=alive.device)
+    return loss_flat, loss_iso, mean_density
+
+
+def compute_loss(params: GaussianParams, alive, cam_quat, cam_trans, gt_im,
+                 gt_depth, cam: Camera, rcfg: RasterConfig, lcfg: LossConfig,
+                 binning=None, iso_pool: IsoKnnPool | None = None,
+                 iso_sel=None, generator: torch.Generator | None = None
+                 ) -> LossOutputs:
+    """gt_im [3,H,W] in [0,1]; gt_depth [1,H,W] meters. Mapping draws the
+    iso loss's sample rows with `generator` unless `iso_sel` is given."""
+    tracking = lcfg.tracking
+    means_cam, quats_cam = transform_to_frame(
+        params.means3d, params.unnorm_rotations, cam_quat, cam_trans,
+        gaussians_grad=not tracking, camera_grad=tracking)
+    live_cols = TRACKING_LIVE_COLS if tracking else MAPPING_LIVE_COLS
+    im, depth, silhouette, depth_sq, aux = render_rgbd_sil(
+        means_cam, quats_cam, params.log_scales, params.logit_opacities,
+        params.rgb_colors, alive, cam, rcfg, binning,
+        live_grad_cols=live_cols)
+    loss_im, loss_depth, mask = _photometric_terms(
+        im, depth, silhouette, depth_sq, gt_im, gt_depth, lcfg)
+
+    z = torch.zeros((), device=im.device)
+    if not tracking:
+        loss_flat, loss_iso, mean_density = _isogs_terms(
+            params, alive, lcfg, iso_pool, iso_sel, generator)
+        w_flat, w_iso = lcfg.w_flat, lcfg.w_iso
+    else:
+        loss_flat = loss_iso = mean_density = z
+        w_flat = w_iso = 0.0
+    wim = lcfg.w_im * loss_im
+    wdepth = lcfg.w_depth * loss_depth
+    wflat = w_flat * loss_flat
+    wiso = w_iso * loss_iso
+    return LossOutputs(loss=wim + wdepth + wflat + wiso, im=wim, depth=wdepth,
+                       flat=wflat, iso=wiso, mean_density=mean_density,
+                       radii=aux["radii"], n_overflow=aux["n_overflow"],
+                       mask_frac=torch.mean(mask.to(torch.float32)))

@@ -1,0 +1,150 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: these need an NVIDIA card and nvcc, and skip without them
+(a CUDA kernel has no interpret mode). This file imports no JAX, so on the
+card it runs without the repo's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from isogs_slam_tpu_torch.ops import _cuda
+from isogs_slam_tpu_torch.ops.composite import (composite_bwd_cuda,
+                                                composite_bwd_plain,
+                                                composite_fwd_cuda,
+                                                composite_fwd_plain)
+from isogs_slam_tpu_torch.ops.segreduce import (segment_reduce_rows_cuda,
+                                                segment_reduce_rows_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    """The card; decided here (not at import) so every test worker
+    collects the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _gdata(T, K, F, tiles_x, seed):
+    """Random per-slot records whose footprints land in their tile; up to
+    1.2 opacity so tiles saturate and pixels terminate."""
+    rng = np.random.default_rng(seed)
+    g = np.zeros((T, K, 6 + F), np.float32)
+    for t in range(T):
+        ox, oy = (t % tiles_x) * 16, (t // tiles_x) * 16
+        g[t, :, 0] = rng.uniform(ox - 2, ox + 18, K)
+        g[t, :, 1] = rng.uniform(oy - 2, oy + 18, K)
+    g[:, :, 2] = rng.uniform(0.05, 0.6, (T, K))
+    g[:, :, 3] = rng.uniform(-0.05, 0.05, (T, K))
+    g[:, :, 4] = rng.uniform(0.05, 0.6, (T, K))
+    g[:, :, 5] = rng.uniform(0.0, 1.2, (T, K))
+    g[:, :, 6:] = rng.uniform(0, 2, (T, K, F))
+    counts = rng.integers(0, K + 1, T).astype(np.int32)
+    counts[0], counts[1] = 0, K
+    return torch.as_tensor(g), torch.as_tensor(counts)
+
+
+@pytest.mark.parametrize("K,sq_col", [(256, 3), (512, 3), (256, None)])
+def test_composite_fwd_kernel_matches_plain(dev, K, sq_col):
+    g, c = _gdata(24, K, 4, 6, seed=K)
+    g, c = g.to(dev), c.to(dev)
+    out, ft, last, tend = composite_fwd_cuda(g, c, 4, 6, sq_col)
+    out_p, ft_p = composite_fwd_plain(g, c, 4, 6, sq_col, chunk=8)
+    torch.cuda.synchronize()
+    assert float((out - out_p).abs().max()) < 1e-5 * float(out_p.abs().max())
+    assert float((ft - ft_p).abs().max()) < 1e-5
+    assert int(last.max()) < K and int(last.min()) >= -1
+    assert torch.all(last[0] == -1)          # empty tile
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_composite_bwd_kernel_matches_plain(dev, out_dtype):
+    g, c = _gdata(24, 256, 4, 6, seed=5)
+    g, c = g.to(dev), c.to(dev)
+    rng = np.random.default_rng(6)
+    gout = torch.as_tensor(rng.normal(size=(24, 256, 5)), dtype=torch.float32,
+                           device=dev)
+    dfin = torch.as_tensor(rng.normal(size=(24, 256)), dtype=torch.float32,
+                           device=dev)
+    _, _, last, tend = composite_fwd_cuda(g, c, 4, 6, 3)
+    dg = composite_bwd_cuda(g, c, gout, dfin, last, tend, 4, 6, 3, out_dtype)
+    dg_p = composite_bwd_plain(g, c, gout, dfin, 4, 6, 3, chunk=8)
+    torch.cuda.synchronize()
+    assert dg.dtype == out_dtype
+    scale = dg_p.abs().amax(dim=(0, 1))                 # per column
+    err = ((dg.float() - dg_p).abs().amax(dim=(0, 1)) / scale).max()
+    # f32: gradients to 1e-4 of their max (the reference's kernel
+    # tolerance); bf16: one bf16 rounding of each row (2^-8 relative)
+    assert float(err) < (1e-4 if out_dtype == torch.float32 else 4e-3)
+    # rows at or past count carry zeros
+    k = torch.arange(256, device=dev)[None, :] >= c[:, None]
+    assert float(dg.float()[k].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segreduce_kernel_matches_plain(dev, dtype):
+    rng = np.random.default_rng(1)
+    n = 5000
+    lens = rng.integers(0, 6, n)
+    lens[7] = 0
+    lens[100] = 3000                 # one long segment
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    d = torch.as_tensor(rng.normal(size=(int(offs[-1]) + 3, 10)),
+                        dtype=dtype, device=dev)
+    o = torch.as_tensor(offs, device=dev)
+    out = segment_reduce_rows_cuda(d, o)
+    ref = segment_reduce_rows_plain(d, o)
+    torch.cuda.synchronize()
+    assert out.shape == (10, n) and out.dtype == torch.float32
+    # f32 sums taken in another order: each differs by at most a few f32
+    # roundings of the segment's absolute sum
+    abs_sum = segment_reduce_rows_plain(d.float().abs(), o)
+    assert torch.all((out - ref).abs() <= 1e-6 * abs_sum + 1e-7)
+
+
+def test_launch_counters_count_launches(dev):
+    g, c = _gdata(4, 128, 4, 2, seed=9)
+    _cuda.reset_launches()
+    composite_fwd_cuda(g.to(dev), c.to(dev), 4, 2, 3)
+    assert _cuda.LAUNCHES["composite_fwd[K=128]"] == 1
+
+
+def test_fused_render_cuda_matches_cpu(dev):
+    """The whole fused mapping render (kernel A forward; kernels B and C in
+    the backward) on the card against the same render on the CPU."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.rasterize import (RasterConfig,
+                                                    render_rgbd_sil)
+    rng = np.random.default_rng(0)
+    n = 1500
+    means = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    means[:, 2] += 2.5
+    arrs = [means, rng.normal(0, 1, (n, 4)),
+            np.log(rng.uniform(0.02, 0.1, (n, 3))),
+            rng.uniform(-2, 3, (n, 1)), rng.uniform(0, 1, (n, 3))]
+    alive = np.ones(n, bool)
+    alive[-100:] = False
+    cam = Camera(width=96, height=80, fx=80.0, fy=80.0, cx=47.5, cy=39.5)
+    cfg = RasterConfig(max_per_tile=256, grad_scatter_bf16=False)
+
+    def run(device):
+        ps = [torch.tensor(a, dtype=torch.float32, device=device,
+                           requires_grad=True) for a in arrs]
+        im, d, s, dsq, _ = render_rgbd_sil(
+            *ps, torch.as_tensor(alive, device=device), cam, cfg)
+        loss = (im ** 2).sum() + d.sum() + 0.5 * s.sum() + dsq.sum()
+        gs = torch.autograd.grad(loss, ps)
+        return [x.detach().cpu() for x in (im, d, s)], [x.cpu() for x in gs]
+
+    (im1, d1, s1), g1 = run("cpu")
+    (im2, d2, s2), g2 = run(dev)
+    assert float((im1 - im2).abs().max()) < 1e-5
+    assert float((d1 - d2).abs().max()) < 1e-4
+    assert float((s1 - s2).abs().max()) < 1e-5
+    for a, b in zip(g1, g2):
+        assert float((a - b).abs().max()) / float(a.abs().max()) < 1e-4

@@ -1,0 +1,50 @@
+"""The PyTorch port imports without JAX and without the JAX package."""
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module of isogs_slam_tpu_torch imports with `jax` blocked, and
+    none of them pulls in anything of isogs_slam_tpu."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        import isogs_slam_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(
+            pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        bad = [m for m in sys.modules
+               if m == "isogs_slam_tpu" or m.startswith("isogs_slam_tpu.")
+               or m == "jax" and sys.modules[m] is not None]
+        assert not bad, bad
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 16
+
+
+def test_port_sources_name_no_jax_import():
+    """No source line of the port imports jax or the JAX package."""
+    pkg = os.path.join(ROOT, "isogs_slam_tpu_torch")
+    offenders = []
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                for i, line in enumerate(fh, 1):
+                    s = line.strip()
+                    if (s.startswith(("import ", "from "))
+                            and (" jax" in s or "isogs_slam_tpu " in s
+                                 or "isogs_slam_tpu." in s)):
+                        offenders.append(f"{path}:{i}: {s}")
+    assert not offenders, offenders
