@@ -11,7 +11,10 @@ before the result line):
      path's shapes, on inputs from a real render of the synthetic room at
      1200x680: composite forward/backward at K = 256 (tracking) and
      K = 512 (mapping, bf16 backward), segment reduce at N = capacity;
-     time kernel, plain version and (segment reduce) torch.segment_reduce;
+     also the plain PyTorch form of the backward kernel's algebra (block
+     cull, exp-free reject, sums in tile-local coordinates) against
+     autograd through the plain forward; time kernel, plain version and
+     (segment reduce) torch.segment_reduce;
   4. the main path: first-frame init, then frames 1-5 of bench.py's
      per-frame step (tracking from the ground-truth pose, densify + 40
      mapping iterations at frame 4), with the kernels' launch counters set
@@ -69,13 +72,17 @@ def bound(nbytes, ops):
 
 
 def pair_counts(gdata, counts, tiles_x, chunk=32):
-    """(evaluated, included) (slot, pixel) pairs of this input: a pixel
-    evaluates slots up to its termination slot (or its tile's count)."""
+    """(evaluated, included, evaluated by the backward) (slot, pixel) pairs
+    of this input: the forward evaluates a pixel's slots up to its
+    termination slot (or its tile's count); the backward up to the pixel's
+    last included slot, since it must evaluate `power` for a pair to know
+    that it does not contribute."""
     import torch
     from isogs_slam_tpu_torch.ops.composite import (ALPHA_MAX, ALPHA_MIN,
                                                     T_EPS, TILE)
     T, K, _ = gdata.shape
-    ev = inc = 0
+    ev = inc = ev_b = 0
+    ks = torch.arange(1, K + 1, device=gdata.device)[None, :, None]
     px = torch.arange(TILE, device=gdata.device, dtype=torch.float32)
     for s in range(0, T, chunk):
         g = gdata[s:s + chunk]
@@ -99,115 +106,53 @@ def pair_counts(gdata, counts, tiles_x, chunk=32):
                             cnt[:, None].expand(-1, fail.shape[2]))
         ev += int(first.sum())
         inc += int(include.sum())
-    return ev, inc
+        ev_b += int((include * ks).amax(1).sum())
+    return ev, inc, ev_b
 
 
-def main() -> int:
-    t_start = time.perf_counter()
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, root)
-    try:
-        import isogs_slam_tpu_torch  # noqa: F401
-    except ImportError as e:
-        print(f"chip_smoke: the port's package is missing ({e}); run "
-              f"from a checkout of the repository", file=sys.stderr)
-        return 3
-    import numpy as np
+def scene(dev, n_frames=N_FRAMES):
+    """The Replica-config slice (bench.py:99-150): dataset, camera, map
+    capacity and the mapping / tracking raster configs."""
     from isogs_slam_tpu_torch.core.gaussians import round_capacity
     from isogs_slam_tpu_torch.datasets.synthetic import SyntheticDataset
-    from isogs_slam_tpu_torch.ops import _cuda
-    from isogs_slam_tpu_torch.ops import composite as comp
-    from isogs_slam_tpu_torch.ops.rasterize import (
-        RasterConfig, _slot_gdata, bin_gaussians, gather_raw_table,
-        project_gaussians)
-    from isogs_slam_tpu_torch.ops.segreduce import (
-        segment_reduce_rows_cuda, segment_reduce_rows_plain)
-    from isogs_slam_tpu_torch.slam.losses import LossConfig
-    from isogs_slam_tpu_torch.slam.mapping import (MappingConfig,
-                                                   PruneConfig, map_frame)
-    from isogs_slam_tpu_torch.slam.pointcloud import (add_new_gaussians,
-                                                      initialize_first_frame)
-    from isogs_slam_tpu_torch.slam.tracking import (TrackingConfig,
-                                                    track_frame)
-    from isogs_slam_tpu_torch.utils.transforms import (rotmat_to_quat,
-                                                       transform_to_frame)
-    dev = torch.device("cuda")
-
-    # 1. the card
-    t0 = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-    phase("card", t0)
-
-    # 2. build
-    t0 = time.perf_counter()
-    logs = _cuda.build()
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "Compiling",
-                                       "smem")):
-                print(f"[ptxas {name}] {line.strip()}")
-    phase("build", t0)
-
-    # the Replica-config slice (bench.py:99-150)
-    ds = SyntheticDataset(num_frames=N_FRAMES + 2, height=H, width=W,
+    from isogs_slam_tpu_torch.ops.rasterize import RasterConfig
+    ds = SyntheticDataset(num_frames=n_frames + 2, height=H, width=W,
                           n_per_wall=max(400, (H * W) // 40), device=dev)
-    cam = ds.cam
     capacity = round_capacity(int(H * W * 1.5), 65536)
     rcfg = RasterConfig(max_per_tile=512)
-    rcfg_track = rcfg._replace(max_per_tile=256)
-    lcfg_track = LossConfig(
-        tracking=True, use_sil_for_loss=True, sil_thres=0.99, use_l1=True,
-        ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0, w_flat=0.0,
-        w_iso=0.0, calc_iso=False, sil_norm_render=True)
-    lcfg_map = LossConfig(
-        tracking=False, use_sil_for_loss=False, sil_thres=0.5, use_l1=True,
-        ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0, w_flat=50.0,
-        w_iso=2.0, iso_sample_size=8192, iso_k=16, calc_iso=True,
-        knn_block=8192)
-    tcfg = TrackingConfig(num_iters=TRACK_ITERS, lr_quat=0.0004,
-                          lr_trans=0.002)
-    mcfg = MappingConfig(
-        num_iters=MAP_ITERS, lr_means3d=0.0001, lr_rgb_colors=0.0025,
-        lr_unnorm_rotations=0.001, lr_logit_opacities=0.05,
-        lr_log_scales=0.001,
-        prune=PruneConfig(True, 0, 0, 20, 20, 0.005, 0.005, False, 500))
+    return ds, ds.cam, capacity, rcfg, rcfg._replace(max_per_tile=256)
 
-    def frame(i):
-        color, depth, _, pose = ds[i]
-        im = torch.as_tensor(color, device=dev).permute(2, 0, 1) / 255.0
-        d = torch.as_tensor(depth, device=dev).permute(2, 0, 1)
-        w2c = np.linalg.inv(np.asarray(pose, np.float64))
-        q = rotmat_to_quat(torch.as_tensor(w2c[:3, :3], dtype=torch.float32))
-        return (im.contiguous(), d.contiguous(), q.to(dev),
-                torch.as_tensor(w2c[:3, 3], dtype=torch.float32, device=dev))
 
-    t0 = time.perf_counter()
-    frames = [frame(i) for i in range(N_FRAMES + 1)]
-    torch.cuda.synchronize()
-    phase("dataset render", t0)
+def load_frame(ds, i, dev):
+    """(image [3,H,W] in 0..1, depth [1,H,W], w2c quaternion, w2c
+    translation) of frame i, on the card."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.utils.transforms import rotmat_to_quat
+    color, depth, _, pose = ds[i]
+    im = torch.as_tensor(color, device=dev).permute(2, 0, 1) / 255.0
+    d = torch.as_tensor(depth, device=dev).permute(2, 0, 1)
+    w2c = np.linalg.inv(np.asarray(pose, np.float64))
+    q = rotmat_to_quat(torch.as_tensor(w2c[:3, :3], dtype=torch.float32))
+    return (im.contiguous(), d.contiguous(), q.to(dev),
+            torch.as_tensor(w2c[:3, 3], dtype=torch.float32, device=dev))
 
-    # 3. each kernel against its plain version on a real render's inputs
-    t0 = time.perf_counter()
+
+def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
+    """The compositing kernels' inputs at the main path's shapes, from a
+    real render: (tracking records [T, 256, 10] and their bins: frame 1's
+    slot table at its ground-truth pose; mapping records [T, 512, 10] and
+    their bins: the fused table at keyframe 0's pose)."""
+    import torch
+    from isogs_slam_tpu_torch.ops.rasterize import (
+        _slot_gdata, bin_gaussians, gather_raw_table, project_gaussians)
+    from isogs_slam_tpu_torch.slam.pointcloud import initialize_first_frame
+    from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
     gen = torch.Generator(device=dev).manual_seed(0)
     im0, d0, q0, t0_ = frames[0]
     state0 = initialize_first_frame(im0, d0, cam, capacity, 3.0,
                                     generator=gen, device=dev)
     p0 = state0.params
-    results = {}
-    rng = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
         # tracking records (K = 256): frame 1's slot table at its GT pose
         q1, t1 = frames[1][2], frames[1][3]
@@ -233,7 +178,91 @@ def main() -> int:
                              p0.rgb_colors[:, 0], p0.rgb_colors[:, 1],
                              p0.rgb_colors[:, 2], mc[:, 2]], dim=1)
         g_map = table[b_map.tile_gauss].contiguous()
+    return g_tr, b_tr, g_map, b_map
 
+
+def main() -> int:
+    t_start = time.perf_counter()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        import isogs_slam_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing ({e}); run "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 3
+    import numpy as np
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.ops import composite as comp
+    from isogs_slam_tpu_torch.ops.segreduce import (
+        segment_reduce_rows_cuda, segment_reduce_rows_plain)
+    from isogs_slam_tpu_torch.slam.losses import LossConfig
+    from isogs_slam_tpu_torch.slam.mapping import (MappingConfig,
+                                                   PruneConfig, map_frame)
+    from isogs_slam_tpu_torch.slam.pointcloud import (add_new_gaussians,
+                                                      initialize_first_frame)
+    from isogs_slam_tpu_torch.slam.tracking import (TrackingConfig,
+                                                    track_frame)
+    dev = torch.device("cuda")
+
+    # 1. the card
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    phase("card", t0)
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _cuda.build()
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "smem")):
+                print(f"[ptxas {name}] {line.strip()}")
+    phase("build", t0)
+
+    ds, cam, capacity, rcfg, rcfg_track = scene(dev)
+    lcfg_track = LossConfig(
+        tracking=True, use_sil_for_loss=True, sil_thres=0.99, use_l1=True,
+        ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0, w_flat=0.0,
+        w_iso=0.0, calc_iso=False, sil_norm_render=True)
+    lcfg_map = LossConfig(
+        tracking=False, use_sil_for_loss=False, sil_thres=0.5, use_l1=True,
+        ignore_outlier_depth_loss=False, w_im=0.5, w_depth=1.0, w_flat=50.0,
+        w_iso=2.0, iso_sample_size=8192, iso_k=16, calc_iso=True,
+        knn_block=8192)
+    tcfg = TrackingConfig(num_iters=TRACK_ITERS, lr_quat=0.0004,
+                          lr_trans=0.002)
+    mcfg = MappingConfig(
+        num_iters=MAP_ITERS, lr_means3d=0.0001, lr_rgb_colors=0.0025,
+        lr_unnorm_rotations=0.001, lr_logit_opacities=0.05,
+        lr_log_scales=0.001,
+        prune=PruneConfig(True, 0, 0, 20, 20, 0.005, 0.005, False, 500))
+
+    t0 = time.perf_counter()
+    frames = [load_frame(ds, i, dev) for i in range(N_FRAMES + 1)]
+    torch.cuda.synchronize()
+    phase("dataset render", t0)
+
+    # 3. each kernel against its plain version on a real render's inputs
+    t0 = time.perf_counter()
+    g_tr, b_tr, g_map, b_map = composite_inputs(frames, cam, capacity, rcfg,
+                                                rcfg_track, dev)
+    results = {}
+    rng = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
         for tag, g, b, bdt in (("track", g_tr, b_tr, torch.float32),
                                ("map", g_map, b_map, torch.bfloat16)):
             T, K, C = g.shape
@@ -277,14 +306,30 @@ def main() -> int:
             if not rel < btol:
                 raise AssertionError(f"composite_bwd disagrees ({tag})")
 
-            ev, inc = pair_counts(g, cnt, tx)
+            # kernel B's algebra in plain PyTorch (block cull, exp-free reject
+            # test, two per-pair scalars, 11 sums in tile-local coordinates)
+            # against autograd through the plain forward, at this width
+            dg_m = comp.composite_bwd_moments(g, cnt, gout, dfin, 4, tx, 3,
+                                              chunk=32)
+            rel_m = float(((dg_m - dg_p).abs().amax(dim=(0, 1))
+                           / scale.clamp(min=1e-30)).max())
+            print(f"[{tag}] composite_bwd_moments (plain algebra of kernel "
+                  f"B) max error / column max {rel_m:.3e} (tol 1.0e-04)")
+            if not rel_m < 1e-4:
+                raise AssertionError(f"the moments algebra disagrees ({tag})")
+            del dg_m
+
+            ev, inc, ev_b = pair_counts(g, cnt, tx)
             slots_b = int(cnt.sum()) * C * 4
             fo = 5
             fwd_bytes = slots_b + T * 4 + T * 256 * (fo + 1) * 4
             fwd_ops = 15 * ev + (5 + 2 * fo) * inc
             bwd_bytes = (slots_b + T * 4 + T * 256 * (fo + 1) * 4
                          + T * K * C * dg.element_size())
-            bwd_ops = (45 + 3 * fo + C) * inc
+            # 15 operations of `power` for every pair up to each pixel's
+            # last included slot, and the gradient arithmetic of the
+            # included ones
+            bwd_ops = 15 * ev_b + (45 + 3 * fo + C) * inc
             ms_f = cuda_ms(lambda: comp.composite_fwd_cuda(g, cnt, 4, tx, 3),
                            20)
             pms_f = cuda_ms(lambda: comp.composite_fwd_plain(
@@ -293,7 +338,8 @@ def main() -> int:
                 g, cnt, gout, dfin, last, tend, 4, tx, 3, bdt), 20)
             pms_b = cuda_ms(lambda: comp.composite_bwd_plain(
                 g, cnt, gout, dfin, 4, tx, 3, chunk=32), 2)
-            print(f"[{tag}] pairs evaluated {ev} included {inc}")
+            print(f"[{tag}] pairs evaluated {ev} included {inc}; evaluated "
+                  f"by the backward {ev_b}")
             for name, err, ms, pms, nb, no in (
                     ("composite_fwd", fwd_err, ms_f, pms_f, fwd_bytes,
                      fwd_ops),
@@ -349,7 +395,7 @@ def main() -> int:
         print(f"segreduce {ms_c:.4f} ms (plain {pms_c:.2f} ms, "
               f"torch.segment_reduce {lib_c:.4f} ms on {lib_note}, bound "
               f"{bms:.4f} ms by {by})")
-    del state0, p0, g_tr, g_map, table, d_exp, dg_map
+    del g_tr, g_map, d_exp, dg_map
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase("kernels vs plain", t0)

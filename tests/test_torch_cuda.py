@@ -86,6 +86,77 @@ def test_composite_bwd_kernel_matches_plain(dev, out_dtype):
     assert float(dg.float()[k].abs().max()) == 0.0
 
 
+def _bwd_against_plain(dev, g, c, tiles_x, out_dtype, seed):
+    """Kernel A then kernel B on (g, c) against the plain versions; returns
+    kernel A's `last` for the caller's own checks."""
+    T, K, _ = g.shape
+    g, c = g.to(dev), c.to(dev)
+    rng = np.random.default_rng(seed)
+    gout = torch.as_tensor(rng.normal(size=(T, 256, 5)), dtype=torch.float32,
+                           device=dev)
+    dfin = torch.as_tensor(rng.normal(size=(T, 256)), dtype=torch.float32,
+                           device=dev)
+    out, ft, last, tend = composite_fwd_cuda(g, c, 4, tiles_x, 3)
+    out_p, ft_p = composite_fwd_plain(g, c, 4, tiles_x, 3, chunk=8)
+    dg = composite_bwd_cuda(g, c, gout, dfin, last, tend, 4, tiles_x, 3,
+                            out_dtype)
+    dg_p = composite_bwd_plain(g, c, gout, dfin, 4, tiles_x, 3, chunk=8)
+    torch.cuda.synchronize()
+    assert float((out - out_p).abs().max()) < 1e-5 * float(out_p.abs().max())
+    assert float((ft - ft_p).abs().max()) < 1e-5
+    assert dg.dtype == out_dtype and bool(torch.isfinite(dg.float()).all())
+    scale = dg_p.abs().amax(dim=(0, 1))
+    err = ((dg.float() - dg_p).abs().amax(dim=(0, 1)) / scale).max()
+    # f32: 1e-4 of each column's max; bf16: one bf16 rounding of each row
+    assert float(err) < (1e-4 if out_dtype == torch.float32 else 4e-3)
+    k = torch.arange(K, device=dev)[None, :] >= c[:, None]
+    assert float(dg.float()[k].abs().max()) == 0.0
+    return last
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_composite_bwd_kernel_matches_plain_k512(dev, out_dtype):
+    g, c = _gdata(24, 512, 4, 6, seed=15)
+    _bwd_against_plain(dev, g, c, 6, out_dtype, seed=16)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_composite_kernels_edge_tiles(dev, out_dtype):
+    """Tiles that sit on the kernels' batch edges: every pixel terminating
+    within the first staged batch, the last included slot exactly at the
+    end of a 32-slot batch and at the start of the next, one slot, and
+    slots whose opacity is at, below and far below 1/255 or zero."""
+    T, K, tx = 8, 128, 4
+    g, c = _gdata(T, K, 4, tx, seed=25)
+
+    def wide(t, n, op):
+        """n slots covering the whole tile with nearly flat footprints."""
+        ox, oy = (t % tx) * 16, (t // tx) * 16
+        g[t, :n, 0], g[t, :n, 1] = ox + 8.0, oy + 8.0
+        g[t, :n, 2], g[t, :n, 3], g[t, :n, 4] = 1e-4, 0.0, 1e-4
+        g[t, :n, 5] = op
+
+    wide(1, 40, 0.9)            # T falls by 10x a slot: all stop by slot 4
+    c[1] = K
+    wide(2, 32, 0.02)           # all 32 included: last == 31 (batch edge)
+    c[2] = 32
+    wide(3, 33, 0.02)           # last == 32: a batch of one slot
+    c[3] = 33
+    wide(4, 1, 0.5)
+    c[4] = 1
+    lo = np.float32(1.0 / 255.0)
+    g[5, ::2, 5] = torch.as_tensor(np.resize(np.array(
+        [0.0, lo, np.nextafter(lo, np.float32(0)), 0.5 * lo, 1e-6],
+        np.float32), g[5, ::2, 5].shape))
+    c[5] = K
+    g[6, :, 5] = 1e-3           # count > 0 and nothing contributes
+    c[6] = 64
+    last = _bwd_against_plain(dev, g, c, tx, out_dtype, seed=26).cpu()
+    assert int(last[1].max()) < 8 and int(last[1].min()) >= 0
+    assert bool((last[2] == 31).all()) and bool((last[3] == 32).all())
+    assert bool((last[4] == 0).all()) and bool((last[6] == -1).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segreduce_kernel_matches_plain(dev, dtype):
     rng = np.random.default_rng(1)
