@@ -7,35 +7,49 @@ before the result line):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
      all at once) and print ptxas' registers / shared memory / spills;
-  3. hold every kernel against its plain PyTorch version at the main
-     path's shapes, on inputs from a real render of the synthetic room at
-     1200x680: composite forward/backward at K = 256 (tracking) and
-     K = 512 (mapping, bf16 backward), segment reduce at N = capacity;
-     also the plain PyTorch form of the backward kernel's algebra (block
-     cull, exp-free reject, sums in tile-local coordinates) against
-     autograd through the plain forward; time kernel, plain version and
-     (segment reduce) torch.segment_reduce;
-  4. the main path: first-frame init, then frames 1-5 of bench.py's
-     per-frame step (tracking from the ground-truth pose, densify + 40
-     mapping iterations at frame 4), with the kernels' launch counters set
-     to 0 before and read after;
-  5. the `kernels` JSON line;
-  6. the result line {"ok": true, "device": {...}}.
+  3. hold every kernel against its plain PyTorch version at the shapes the
+     two paths below give it, on inputs from a real render of the synthetic
+     room at 1200x680: composite forward/backward at K = 256 (tracking),
+     K = 512 (mapping, bf16 backward), K = 768 and 1024 (the slot counts
+     the pipeline escalates to) and at the 600x340 camera of the tracking
+     pyramid (836 tiles, partial tiles on both edges); the tile-to-image
+     crop at both cameras; segment reduce at N = capacity; also the plain
+     PyTorch form of the backward kernel's algebra against autograd through
+     the plain forward; time kernel, plain version and (segment reduce)
+     torch.segment_reduce;
+  4. the per-frame step driven by hand (the earlier path, cut in depth):
+     first-frame init, two tracking frames from the ground-truth pose,
+     densify + 10 mapping iterations, with the kernels' launch counters
+     set to 0 before and read after;
+  5. the pipeline path: the port's CLI (scripts.splatam.main) in-process on
+     configs/synthetic/full_res.py at 1200x680, `--end-at 30` with
+     evaluation and checkpoints into a temporary run directory, launch
+     counters set to 0 before and read after; prints timings, tile-list
+     reuse, cap escalations, capacity growths, peak memory, the quality
+     metrics and the launch counters, and fails on a kernel that was not
+     launched, a non-finite loss or parameter, a tracking mask under 0.1,
+     ATE >= 2 cm or PSNR <= 25 dB;
+  6. the `kernels` JSON line;
+  7. the result line {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 (`--profile` adds a torch.profiler table of one more tracking frame and
-mapping phase after phase 4.)
+mapping phase of the pipeline path after phase 5.)
 """
 from __future__ import annotations
 
+import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 H, W = 680, 1200
-TRACK_ITERS, MAP_ITERS, MAP_EVERY, N_FRAMES = 10, 40, 5, 5
+TRACK_ITERS, MAP_ITERS, N_FRAMES = 10, 10, 2     # the hand-driven path
+END_AT = 30                                   # the pipeline path
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 SOURCES = {"composite_fwd": "isogs_slam_tpu_torch/csrc/composite.cu",
@@ -139,14 +153,17 @@ def load_frame(ds, i, dev):
 
 
 def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
-    """The compositing kernels' inputs at the main path's shapes, from a
-    real render: (tracking records [T, 256, 10] and their bins: frame 1's
-    slot table at its ground-truth pose; mapping records [T, 512, 10] and
-    their bins: the fused table at keyframe 0's pose)."""
+    """The compositing kernels' inputs at the paths' shapes, from a real
+    render, as {tag: (records, bins, camera, backward dtype)}: "track":
+    frame 1's slot table [T, 256, 10] at its ground-truth pose; "pyramid":
+    the same at the 600x340 camera of pyramid level 1; "map", "map768",
+    "map1024": the fused table at keyframe 0's pose gathered by bins of
+    K = 512, 768 and 1024."""
     import torch
     from isogs_slam_tpu_torch.ops.rasterize import (
         _slot_gdata, bin_gaussians, gather_raw_table, project_gaussians)
     from isogs_slam_tpu_torch.slam.pointcloud import initialize_first_frame
+    from isogs_slam_tpu_torch.slam.tracking import bin_at_pose, pyramid_cam
     from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
     gen = torch.Generator(device=dev).manual_seed(0)
     im0, d0, q0, t0_ = frames[0]
@@ -156,20 +173,17 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
     with torch.no_grad():
         # tracking records (K = 256): frame 1's slot table at its GT pose
         q1, t1 = frames[1][2], frames[1][3]
-        mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations, q1, t1,
-                                    gaussians_grad=False, camera_grad=False)
-        b_tr = bin_gaussians(project_gaussians(mc, qc, p0.log_scales,
-                                               state0.alive, cam,
-                                               margin_px=8.0),
-                             cam, rcfg_track)
-        g_tr = _slot_gdata(gather_raw_table(p0, b_tr.tile_gauss), q1, t1,
-                           cam).contiguous()
+        out = {}
+        for tag, c in (("track", cam), ("pyramid", pyramid_cam(cam, 1))):
+            b = bin_at_pose(p0, state0.alive, q1, t1, 8.0, c, rcfg_track)
+            g = _slot_gdata(gather_raw_table(p0, b.tile_gauss), q1, t1,
+                            c).contiguous()
+            out[tag] = (g, b, c, torch.float32)
         # mapping records (K = 512): the fused table at keyframe 0's pose
         mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations, q0,
                                     t0_, gaussians_grad=False,
                                     camera_grad=False)
         proj = project_gaussians(mc, qc, p0.log_scales, state0.alive, cam)
-        b_map = bin_gaussians(proj, cam, rcfg, emit_exp=True)
         op = torch.where(proj.valid,
                          torch.sigmoid(p0.logit_opacities[:, 0]),
                          torch.zeros_like(proj.u))
@@ -177,8 +191,118 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
                              proj.conic[:, 1], proj.conic[:, 2], op,
                              p0.rgb_colors[:, 0], p0.rgb_colors[:, 1],
                              p0.rgb_colors[:, 2], mc[:, 2]], dim=1)
-        g_map = table[b_map.tile_gauss].contiguous()
-    return g_tr, b_tr, g_map, b_map
+        for tag, k in (("map", rcfg.max_per_tile), ("map768", 768),
+                       ("map1024", 1024)):
+            b = bin_gaussians(proj, cam, rcfg._replace(max_per_tile=k),
+                              emit_exp=True)
+            out[tag] = (table[b.tile_gauss].contiguous(), b, cam,
+                        torch.bfloat16)
+    return out
+
+
+def check_tile_crop(cam, dev):
+    """_tiles_to_image against direct indexing: pixel (y, x) is entry
+    (y % 16) * 16 + x % 16 of tile (y // 16) * tiles_x + x // 16."""
+    import torch
+    from isogs_slam_tpu_torch.ops.rasterize import TILE, _tiles_to_image
+    tiles = torch.arange(cam.num_tiles * TILE * TILE * 2, device=dev,
+                         dtype=torch.float32).reshape(cam.num_tiles,
+                                                      TILE * TILE, 2)
+    img = _tiles_to_image(tiles, cam)
+    ys = torch.arange(cam.height, device=dev)[:, None]
+    xs = torch.arange(cam.width, device=dev)[None, :]
+    want = tiles[(ys // TILE) * cam.tiles_x + xs // TILE,
+                 (ys % TILE) * TILE + xs % TILE].permute(2, 0, 1)
+    if img.shape != (2, cam.height, cam.width) or not torch.equal(img, want):
+        raise AssertionError(f"_tiles_to_image crops {cam.width}x"
+                             f"{cam.height} wrongly")
+    print(f"tile crop {cam.width}x{cam.height}: {cam.tiles_x}x{cam.tiles_y} "
+          f"tiles -> image {tuple(img.shape)} equal to direct indexing")
+
+
+def pipeline_path(root, end_at, extra_args=()):
+    """Phase 5: the port's CLI in-process on configs/synthetic/full_res.py
+    with evaluation and checkpoints, into a temporary run directory; the
+    launch counters are set to 0 before and read after. Prints the run's
+    numbers, raises on a failed check, returns the launch counts."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.io.checkpoints import (latest_checkpoint,
+                                                     load_checkpoint)
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.scripts import splatam
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    run_dir = tempfile.mkdtemp(prefix="isogs_smoke_")
+    try:
+        slam = splatam.main([
+            os.path.join(root, "isogs_slam_tpu_torch", "configs",
+                         "synthetic", "full_res.py"),
+            "--end-at", str(end_at), "--set", f"workdir={run_dir}",
+            "--set", "save_checkpoints=True",
+            "--set", f"checkpoint_interval={end_at}", *extra_args])
+        torch.cuda.synchronize()
+        launches_cli = dict(_cuda.LAUNCHES)
+        t_cli = time.perf_counter() - t0
+        with open(os.path.join(slam.output_dir, "metrics_log.csv")) as f:
+            rows = list(csv.DictReader(f))
+        ckpts = sorted(os.listdir(slam.output_dir))
+        ck_frame, ck_path = latest_checkpoint(slam.output_dir)
+        ck = load_checkpoint(ck_path)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    st, ev, res = slam.stats, slam.events, slam.eval_results
+    tr, mp = st["tracking_frame_time"][1:], st["mapping_frame_time"]
+    n_alive = int(slam.state.num_alive())
+    print(f"pipeline: frames 0-{end_at} + eval in {t_cli:.1f} s (frames are "
+          f"rendered by the dataset's prefetch thread on the same stream, "
+          f"inside these times)")
+    print(f"tracking s/frame: mean {np.mean(tr):.4f} min {np.min(tr):.4f} "
+          f"max {np.max(tr):.4f} over {len(tr)} frames "
+          f"({np.mean(st['tracking_iters_run']):.1f} iterations each)")
+    print(f"mapping s/phase: mean {np.mean(mp):.4f} min {np.min(mp):.4f} "
+          f"max {np.max(mp):.4f} over {len(mp)} phases; each: "
+          f"{[round(x, 3) for x in mp]}")
+    print(f"BinningReuse: {slam._track_bins.n_rebins} rebins, "
+          f"{slam._track_bins.n_reuses} reuses")
+    print(f"max_per_tile escalations (frame, old, new): "
+          f"{ev['max_per_tile']}; isect-cap changes: {ev['isect_cap']}")
+    print(f"capacity growths (frame, old, new): {ev['capacity']}; "
+          f"compactions at frames {ev['compactions']}; capacity now "
+          f"{slam.state.capacity}")
+    print(f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"Gaussians: {n_alive} alive, high-water mark "
+          f"{int(slam.state.hwm)}")
+    print(f"ATE RMSE {res['Final Average ATE RMSE (cm)']:.4f} cm, PSNR "
+          f"{res['Average PSNR']:.3f} dB, MS-SSIM "
+          f"{res['Average MS-SSIM']:.4f}, depth L1 "
+          f"{res['Average Depth L1 (cm)']:.4f} cm, LPIPS "
+          f"({res['LPIPS Variant']}) {res['Average LPIPS']:.5f}")
+    print(f"tracking mask_frac: min {min(st['tracking_mask_frac']):.3f}; "
+          f"checkpoint files {[c for c in ckpts if c.startswith('params')]}")
+    print(f"launches on the pipeline path {launches_cli}")
+    phase(f"pipeline path (CLI, {end_at + 1} frames + eval)", t0)
+    if ck_frame != end_at or ck["means3D"].shape[0] != n_alive:
+        raise AssertionError("the last checkpoint does not hold the map")
+    vals = np.array([[float(r[k]) for k in ("loss", "image_loss",
+                                            "depth_loss", "flat_loss",
+                                            "iso_loss", "mean_density",
+                                            "mask_frac")] for r in rows])
+    if not (np.isfinite(vals).all()
+            and all(bool(torch.isfinite(p).all())
+                    for p in slam.state.params)
+            and np.isfinite(slam.cam_trans[:, :end_at + 1]).all()):
+        raise AssertionError("non-finite losses, parameters or poses")
+    if min(st["tracking_mask_frac"]) < 0.1:
+        raise AssertionError("the tracking mask collapsed")
+    if not (res["Final Average ATE RMSE (cm)"] < 2.0
+            and res["Average PSNR"] > 25.0):
+        raise AssertionError(f"the run collapsed: {res}")
+    if "--profile" in sys.argv[1:]:
+        profile_pipeline(slam, end_at + 1)
+    return launches_cli
 
 
 def main() -> int:
@@ -205,12 +329,13 @@ def main() -> int:
     from isogs_slam_tpu_torch.ops.segreduce import (
         segment_reduce_rows_cuda, segment_reduce_rows_plain)
     from isogs_slam_tpu_torch.slam.losses import LossConfig
+    from isogs_slam_tpu_torch.slam.keyframes import KeyframeLibrary
     from isogs_slam_tpu_torch.slam.mapping import (MappingConfig,
                                                    PruneConfig, map_frame)
     from isogs_slam_tpu_torch.slam.pointcloud import (add_new_gaussians,
                                                       initialize_first_frame)
     from isogs_slam_tpu_torch.slam.tracking import (TrackingConfig,
-                                                    track_frame)
+                                                    pyramid_cam, track_frame)
     dev = torch.device("cuda")
 
     # 1. the card
@@ -258,18 +383,21 @@ def main() -> int:
 
     # 3. each kernel against its plain version on a real render's inputs
     t0 = time.perf_counter()
-    g_tr, b_tr, g_map, b_map = composite_inputs(frames, cam, capacity, rcfg,
-                                                rcfg_track, dev)
+    inputs = composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev)
     results = {}
     rng = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
-        for tag, g, b, bdt in (("track", g_tr, b_tr, torch.float32),
-                               ("map", g_map, b_map, torch.bfloat16)):
+        for c in (cam, pyramid_cam(cam, 1)):
+            check_tile_crop(c, dev)
+        for tag, (g, b, c, bdt) in inputs.items():
             T, K, C = g.shape
             cnt = b.tile_count
-            tx = cam.tiles_x
-            print(f"[{tag}] gdata {tuple(g.shape)} slots "
-                  f"{int(cnt.sum())} max count {int(cnt.max())}")
+            tx = c.tiles_x
+            print(f"[{tag}] camera {c.width}x{c.height} gdata "
+                  f"{tuple(g.shape)} slots {int(cnt.sum())} max count "
+                  f"{int(cnt.max())}; binning: {int(b.n_isect)} "
+                  f"intersections, {int(b.n_overflow)} dropped by the caps "
+                  f"({int(b.n_true_overflow)} of them true candidates)")
             out, ft, last, tend = comp.composite_fwd_cuda(g, cnt, 4, tx, 3)
             out_p, ft_p = comp.composite_fwd_plain(g, cnt, 4, tx, 3,
                                                    chunk=32)
@@ -306,18 +434,21 @@ def main() -> int:
             if not rel < btol:
                 raise AssertionError(f"composite_bwd disagrees ({tag})")
 
-            # kernel B's algebra in plain PyTorch (block cull, exp-free reject
-            # test, two per-pair scalars, 11 sums in tile-local coordinates)
-            # against autograd through the plain forward, at this width
-            dg_m = comp.composite_bwd_moments(g, cnt, gout, dfin, 4, tx, 3,
-                                              chunk=32)
-            rel_m = float(((dg_m - dg_p).abs().amax(dim=(0, 1))
-                           / scale.clamp(min=1e-30)).max())
-            print(f"[{tag}] composite_bwd_moments (plain algebra of kernel "
-                  f"B) max error / column max {rel_m:.3e} (tol 1.0e-04)")
-            if not rel_m < 1e-4:
-                raise AssertionError(f"the moments algebra disagrees ({tag})")
-            del dg_m
+            if tag in ("track", "map"):
+                # kernel B's algebra in plain PyTorch (block cull, exp-free
+                # reject test, two per-pair scalars, 11 sums in tile-local
+                # coordinates) against autograd through the plain forward
+                dg_m = comp.composite_bwd_moments(g, cnt, gout, dfin, 4, tx,
+                                                  3, chunk=32)
+                rel_m = float(((dg_m - dg_p).abs().amax(dim=(0, 1))
+                               / scale.clamp(min=1e-30)).max())
+                print(f"[{tag}] composite_bwd_moments (plain algebra of "
+                      f"kernel B) max error / column max {rel_m:.3e} (tol "
+                      f"1.0e-04)")
+                if not rel_m < 1e-4:
+                    raise AssertionError(
+                        f"the moments algebra disagrees ({tag})")
+                del dg_m
 
             ev, inc, ev_b = pair_counts(g, cnt, tx)
             slots_b = int(cnt.sum()) * C * 4
@@ -346,13 +477,14 @@ def main() -> int:
                     ("composite_bwd", bwd_err, ms_b, pms_b, bwd_bytes,
                      bwd_ops)):
                 bms, by = bound(nb, no)
-                results[f"{name}[K={K}]"] = dict(
+                results[f"{name}[T={T},K={K}]"] = dict(
                     kernel=name, max_abs_err=err, ms=ms, plain_ms=pms,
                     bound_ms=bms, bound_by=by, library_ms=None)
-                print(f"[{tag}] {name}[K={K}] {ms:.4f} ms (plain {pms:.2f} "
-                      f"ms, bound {bms:.4f} ms by {by})")
+                print(f"[{tag}] {name}[T={T},K={K}] {ms:.4f} ms (plain "
+                      f"{pms:.2f} ms, bound {bms:.4f} ms by {by})")
             if tag == "map":
-                dg_map = dg
+                dg_map, b_map = dg, b
+            del out, ft, last, tend, out_p, ft_p, gout, dfin, dg_p, diff
 
         # segment reduce at N = capacity on kernel B's bf16 rows written
         # back in expansion order (the mapping backward's input)
@@ -395,12 +527,12 @@ def main() -> int:
         print(f"segreduce {ms_c:.4f} ms (plain {pms_c:.2f} ms, "
               f"torch.segment_reduce {lib_c:.4f} ms on {lib_note}, bound "
               f"{bms:.4f} ms by {by})")
-    del g_tr, g_map, d_exp, dg_map
+    del inputs, g, b, dg, d_exp, dg_map, b_map, seg, seg_p, abs_sum, lib_in
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase("kernels vs plain", t0)
 
-    # 4. the main path: bench.py's per-frame step, launch counters from 0
+    # 4. the per-frame step driven by hand, launch counters from 0
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
@@ -409,22 +541,10 @@ def main() -> int:
     im0, d0, q0, t0_ = frames[0]
     state = initialize_first_frame(im0, d0, cam, capacity, 3.0,
                                    generator=gen, device=dev)
-    S = 6
-    kf_colors = torch.zeros((S, H, W, 3), dtype=torch.uint8, device=dev)
-    kf_depths = torch.zeros((S, H, W), device=dev)
-    kf_quats = torch.zeros((S, 4), device=dev)
-    kf_trans = torch.zeros((S, 3), device=dev)
-
-    def set_kf(slot, im, d, q, t):
-        kf_colors[slot] = (im.permute(1, 2, 0) * 255).to(torch.uint8)
-        kf_depths[slot] = d[0]
-        kf_quats[slot] = q
-        kf_trans[slot] = t
-
-    set_kf(0, im0, d0, q0, t0_)
+    kf = KeyframeLibrary(2, H, W, dev)
+    kf.add_keyframe(0, im0, d0, q0, t0_, np.eye(4))
     torch.cuda.synchronize()
     print(f"init: {int(state.num_alive())} Gaussians, capacity {capacity}")
-    last_track = last_map = None
     for i in range(1, N_FRAMES + 1):
         im, d, q_gt, t_gt = frames[i]
         tf = time.perf_counter()
@@ -437,79 +557,63 @@ def main() -> int:
         ang = 2 * torch.acos(torch.clamp(torch.abs(torch.dot(
             qn, q_gt / q_gt.norm())), max=1.0))
         terr = float((res.trans - t_gt).norm())
-        t_map = 0.0
-        if (i + 1) % MAP_EVERY == 0:
-            tm = time.perf_counter()
-            state = add_new_gaussians(state, im, d, res.quat, res.trans,
-                                      float(i), cam, rcfg, sil_thres=0.5,
-                                      generator=gen)
-            slot = (i // MAP_EVERY) % (S - 1) + 1
-            set_kf(slot, im, d, res.quat, res.trans)
-            iter_slots = rng_np.integers(0, min(slot + 1, S), size=MAP_ITERS)
-            state, mlog, bstats = map_frame(state, kf_colors, kf_depths,
-                                            kf_quats, kf_trans, iter_slots,
-                                            cam, rcfg, lcfg_map, mcfg,
-                                            generator=gen)
-            torch.cuda.synchronize()
-            t_map = time.perf_counter() - tm
-            last_map = mlog[-1]
-            print(f"frame {i}: mapping bin stats (true overflow, isect, "
-                  f"max isect) {[int(x) for x in bstats]}")
-        print(f"frame {i}: track {t_track:.3f} s, map {t_map:.3f} s, "
-              f"{int(state.num_alive())} Gaussians, pose error "
+        print(f"frame {i}: track {t_track:.3f} s, pose error "
               f"{terr * 100:.4f} cm / {float(ang) * 180 / np.pi:.5f} deg, "
               f"tracking loss {float(last_track[0]):.4f} "
               f"(mask {float(last_track[6]):.3f})")
-    launches = dict(_cuda.LAUNCHES)
+    tm = time.perf_counter()
+    state = add_new_gaussians(state, im, d, res.quat, res.trans,
+                              float(N_FRAMES), cam, rcfg, sil_thres=0.5,
+                              generator=gen)
+    kf.add_keyframe(N_FRAMES, im, d, res.quat, res.trans, np.eye(4))
+    iter_slots = rng_np.integers(0, 2, size=MAP_ITERS)
+    state, mlog, bstats = map_frame(state, kf.colors, kf.depths, kf.quats,
+                                    kf.trans, iter_slots, cam, rcfg,
+                                    lcfg_map, mcfg, generator=gen)
+    torch.cuda.synchronize()
+    last_map = mlog[-1]
+    print(f"mapping ({MAP_ITERS} iterations over 2 keyframes): "
+          f"{time.perf_counter() - tm:.3f} s, {int(state.num_alive())} "
+          f"Gaussians, bin stats (true overflow, isect, max isect) "
+          f"{[int(x) for x in bstats]}")
+    launches_hand = dict(_cuda.LAUNCHES)
     print(f"final mapping loss terms (loss, im, depth, flat, iso, "
           f"density, mask) {[round(float(x), 6) for x in last_map]}")
     print(f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
-          f" GiB; launches on the main path {launches}")
-    phase("main path (init + 5 frames)", t0)
+          f" GiB; launches on the hand-driven path {launches_hand}")
+    phase(f"hand-driven path (init + {N_FRAMES} frames + mapping)", t0)
     finite = (torch.isfinite(last_track).all()
               and torch.isfinite(last_map).all()
               and all(torch.isfinite(p).all() for p in state.params))
     if not finite:
         raise AssertionError("non-finite losses or parameters")
+    del state, kf, frames, ds, res, mlog
+    torch.cuda.empty_cache()
 
-    if "--profile" in sys.argv[1:]:
-        # where one more tracking frame and one more mapping phase spend
-        # their time (not part of the default run)
-        from torch.profiler import ProfilerActivity, profile
-        t0 = time.perf_counter()
-        im, d, q_gt, t_gt = frames[N_FRAMES]
-        iter_slots = rng_np.integers(0, 2, size=MAP_ITERS)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            tw = time.perf_counter()
-            track_frame(state.params, state.alive, q_gt, t_gt, im, d, cam,
-                        rcfg_track, lcfg_track, tcfg)
-            torch.cuda.synchronize()
-            t_tr = time.perf_counter() - tw
-            tw = time.perf_counter()
-            map_frame(state, kf_colors, kf_depths, kf_quats, kf_trans,
-                      iter_slots, cam, rcfg, lcfg_map, mcfg, generator=gen)
-            torch.cuda.synchronize()
-            t_mp = time.perf_counter() - tw
-        ka = prof.key_averages()
-        # device busy time: the kernels' own events (an operator's row
-        # would count its kernels a second time)
-        dev_s = sum(e.device_time_total for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
-        print(ka.table(sort_by="self_device_time_total", row_limit=30,
-                       max_name_column_width=60))
-        print(f"profile: tracking frame {t_tr:.3f} s, mapping phase "
-              f"{t_mp:.3f} s (wall, profiler on); device time "
-              f"{dev_s:.3f} s = {dev_s / (t_tr + t_mp):.3f} of the wall "
-              f"time")
-        phase("profile", t0)
+    # 5. the pipeline path: the port's CLI at full width, counters from 0
+    launches_cli = pipeline_path(root, END_AT)
 
-    # 5. kernels line
+    # 6. kernels line: launches of both paths, each read after its run
     kernels = []
+    for path_name, launches in (("hand-driven", launches_hand),
+                                ("pipeline", launches_cli)):
+        for kname in SOURCES:
+            if not any(k.startswith(kname) and n > 0
+                       for k, n in launches.items()):
+                raise AssertionError(f"{kname} was not launched on the "
+                                     f"{path_name} path")
+        unchecked = [k for k in launches if k not in results]
+        if unchecked:
+            raise AssertionError(f"shapes launched on the {path_name} path "
+                                 f"but not held against the plain version: "
+                                 f"{unchecked}")
     for key, r in results.items():
-        n = launches.get(key, 0)
+        n = launches_hand.get(key, 0) + launches_cli.get(key, 0)
         if n <= 0:
-            raise AssertionError(f"{key} was not launched on the main path")
+            print(f"[kernels] {key}: held against its plain version "
+                  f"({r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms) but "
+                  f"launched on neither path in this run")
+            continue
         kernels.append({
             "name": key, "route": "cuda", "source": SOURCES[r["kernel"]],
             "replaces": REPLACES[r["kernel"]], "launches": n,
@@ -523,6 +627,42 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile_pipeline(slam, time_idx):
+    """torch.profiler over one more tracking frame and one more densify +
+    mapping phase of the pipeline's SLAM object (not part of the default
+    run): kernel time by name and the device's busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    color, depth, _, pose = slam.dataset[time_idx]
+    slam.gt_w2c_all.append(np.linalg.inv(np.asarray(pose, np.float64)))
+    im, d = slam._to_chw_frame(color, depth)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        slam.track(time_idx, im, d)
+        torch.cuda.synchronize()
+        t_tr = time.perf_counter() - tw
+        tw = time.perf_counter()
+        slam.densify(time_idx, im, d)
+        slam.map(time_idx, im, d)
+        torch.cuda.synchronize()
+        t_mp = time.perf_counter() - tw
+    # device busy time: the kernels' own events (an operator's row would
+    # count its kernels a second time)
+    dev_s = sum(e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=30,
+                                    max_name_column_width=60))
+    print(f"profile: tracking frame {t_tr:.3f} s, densify + mapping phase "
+          f"{t_mp:.3f} s (wall, profiler on); device time {dev_s:.3f} s = "
+          f"{dev_s / (t_tr + t_mp):.3f} of the wall time")
+    phase("profile", t0)
 
 
 if __name__ == "__main__":

@@ -103,8 +103,40 @@ def append_rows(state: MapState, rows: GaussianParams, valid: torch.Tensor,
 
 
 def prune(state: MapState, remove: torch.Tensor) -> MapState:
-    """Mark rows dead (physical compaction is not part of the port yet)."""
+    """Mark rows dead (physical compaction is deferred to `compact`)."""
     return state._replace(alive=state.alive & ~remove)
+
+
+def compact(state: MapState) -> MapState:
+    """Re-pack alive rows into a dense prefix. A stable sort on the dead
+    flag keeps creation order; dead rows keep their values behind the new
+    high-water mark."""
+    order = torch.sort((~state.alive).to(torch.int8), stable=True).indices
+    n_alive = torch.sum(state.alive.to(torch.int64))
+    params = GaussianParams(*[p[order] for p in state.params])
+    alive = torch.arange(state.capacity, device=order.device) < n_alive
+    return state._replace(
+        params=params, alive=alive, hwm=n_alive,
+        timestep=state.timestep[order],
+        max_2d_radius=state.max_2d_radius[order],
+        means2d_grad_accum=state.means2d_grad_accum[order],
+        denom=state.denom[order])
+
+
+def grow_capacity(state: MapState, new_capacity: int) -> MapState:
+    """Extend every per-row array with zero (dead) rows."""
+    C = state.capacity
+    assert new_capacity >= C
+
+    def pad(a):
+        return torch.cat([a, a.new_zeros((new_capacity - C,) + a.shape[1:])])
+
+    return state._replace(
+        params=GaussianParams(*[pad(p) for p in state.params]),
+        alive=pad(state.alive), timestep=pad(state.timestep),
+        max_2d_radius=pad(state.max_2d_radius),
+        means2d_grad_accum=pad(state.means2d_grad_accum),
+        denom=pad(state.denom))
 
 
 def round_capacity(n: int, granule: int = 65536) -> int:

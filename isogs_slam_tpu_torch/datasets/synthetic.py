@@ -84,6 +84,7 @@ class SyntheticDataset:
          self.logit_op) = make_room_gaussians(rng, n_per_wall)
         self.poses = make_trajectory(num_frames, step=traj_step)
         self.num_imgs = num_frames
+        self.png_depth_scale = 6553.5
         self._cache = {}
 
     def __len__(self):

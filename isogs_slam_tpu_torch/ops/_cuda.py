@@ -7,9 +7,9 @@ kernel is rebuilt. Libraries are loaded with ctypes: pointers and the
 stream are passed as c_void_p, and every C entry returns the
 cudaGetLastError() of its launch, which `check` turns into an exception.
 
-Each wrapper counts its launches in `LAUNCHES` (kernel name, with the slot
-count K for the compositing kernels -> count), so a run can show that its
-path went through the kernels.
+Each wrapper counts its launches in `LAUNCHES` (kernel name, with the tile
+count T and the slot count K for the compositing kernels -> count), so a
+run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
@@ -50,12 +50,14 @@ SIGNATURES = {
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        LAUNCHES.clear()
 
 
 def count_launch(name: str):
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    # the dataset prefetch thread launches kernels too
+    with _LOCK:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def nvcc() -> str:

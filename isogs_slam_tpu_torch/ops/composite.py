@@ -311,7 +311,7 @@ def composite_fwd_cuda(gdata, counts, F: int, tiles_x: int, sq_col=None):
         _cuda.ptr(final_t), _cuda.ptr(last), _cuda.ptr(tend),
         _cuda.stream_ptr())
     _cuda.check(err, "composite_fwd")
-    _cuda.count_launch(f"composite_fwd[K={K}]")
+    _cuda.count_launch(f"composite_fwd[T={T},K={K}]")
     return out, final_t, last, tend
 
 
@@ -342,7 +342,7 @@ def composite_bwd_cuda(gdata, counts, gout, dfinal, last, tend, F: int,
         _cuda.ptr(tend.contiguous()), int(out_dtype == torch.bfloat16),
         _cuda.ptr(dg), _cuda.stream_ptr())
     _cuda.check(err, "composite_bwd")
-    _cuda.count_launch(f"composite_bwd[K={K}]")
+    _cuda.count_launch(f"composite_bwd[T={T},K={K}]")
     return dg
 
 

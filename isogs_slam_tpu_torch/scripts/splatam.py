@@ -1,0 +1,101 @@
+"""SLAM CLI (counterpart of isogs_slam_tpu/scripts/splatam.py):
+
+    python -m isogs_slam_tpu_torch.scripts.splatam \\
+        isogs_slam_tpu_torch/configs/synthetic/full_res.py [--end-at N]
+
+Loads the experiment config module, seeds, copies the config into the run
+directory for provenance, runs SLAM on config["primary_device"] ("cuda"
+unless the config or `--device cpu` says otherwise), then evaluates.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..slam.config import copy_config_for_provenance, load_experiment_config
+from ..slam.pipeline import SLAM
+from ..utils.common import seed_everything
+
+
+def apply_overrides(config: dict, overrides: list[str]):
+    """Apply `--set a.b.c=value` entries in place (value = Python literal
+    when it parses, raw string otherwise). Keys must already exist: a typo
+    silently creating a new key would un-ablate the ablation."""
+    import ast
+    for item in overrides:
+        key, sep, raw = item.partition("=")
+        if not sep:
+            raise SystemExit(f"--set expects KEY=VALUE, got {item!r}")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        node = config
+        parts = key.strip().split(".")
+        for p in parts[:-1]:
+            if not isinstance(node, dict) or p not in node:
+                raise SystemExit(f"--set: no such config path {key!r}")
+            node = node[p]
+        if not isinstance(node, dict) or parts[-1] not in node:
+            raise SystemExit(f"--set: no such config key {key!r}")
+        node[parts[-1]] = value
+        print(f"[config] override {key} = {value!r}")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("experiment", type=str,
+                        help="Path to experiment config .py")
+    parser.add_argument("--end-at", type=int, default=None,
+                        help="Stop after this frame index (inclusive)")
+    parser.add_argument("--no-eval", action="store_true",
+                        help="Skip the final evaluation pass")
+    parser.add_argument("--device", type=str, default=None,
+                        help="Override config['primary_device'] "
+                             "(cuda or cpu)")
+    parser.add_argument("--set", action="append", default=[],
+                        metavar="KEY=VALUE", dest="overrides",
+                        help="Override a config entry by dotted path, e.g. "
+                             "--set tracking.num_iters=20 "
+                             "--set mapping.loss_weights.iso=1.0 "
+                             "(value parsed as a Python literal; bare "
+                             "strings pass through). Repeatable. Applied "
+                             "after the config module loads, recorded in "
+                             "the provenance copy's overrides.txt.")
+    args = parser.parse_args(argv)
+
+    config = load_experiment_config(args.experiment)
+    apply_overrides(config, args.overrides)
+    if args.device is not None:
+        config["primary_device"] = args.device
+    seed_everything(config.get("seed", 0))
+
+    results_dir = os.path.join(config["workdir"], config["run_name"])
+    if not config.get("load_checkpoint", False):
+        copy_config_for_provenance(args.experiment, results_dir)
+        if args.overrides:
+            os.makedirs(results_dir, exist_ok=True)
+            with open(os.path.join(results_dir, "overrides.txt"), "w") as f:
+                f.write("\n".join(args.overrides) + "\n")
+
+    slam = SLAM(config)
+    slam.run(end_at=args.end_at)
+
+    if not args.no_eval:
+        from ..eval.eval_helpers import eval_sequence
+        # with --end-at, only frames the run actually processed are
+        # evaluated (untracked poses beyond it are meaningless)
+        n_eval = (min(args.end_at + 1, slam.num_frames)
+                  if args.end_at is not None else None)
+        slam.eval_results = eval_sequence(
+            slam.dataset, slam, slam.eval_dir,
+            sil_thres=config["mapping"]["sil_thres"],
+            mapping_iters=config["mapping"]["num_iters"],
+            add_new_gaussians=config["mapping"]["add_new_gaussians"],
+            eval_every=config.get("eval_every", 1),
+            num_frames=n_eval)
+    return slam
+
+
+if __name__ == "__main__":
+    main()

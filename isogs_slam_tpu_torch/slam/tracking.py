@@ -1,7 +1,9 @@
 """Per-frame camera tracking (counterpart of
-isogs_slam_tpu/slam/tracking.py, default branch of `track_frame`).
+isogs_slam_tpu/slam/tracking.py: the default branch of `track_frame`, the
+cross-frame tile-list cache and the coarse-to-fine pyramid).
 
-The map is binned once per frame at the initial pose with a pixel margin;
+The map is binned once per frame at the initial pose with a pixel margin
+(or the caller hands in a binning it keeps across frames, `BinningReuse`);
 the per-slot raw table is gathered once; each iteration re-projects it per
 slot, composites (kernels A and B) and takes an Adam step on the pose.
 The loop keeps the best candidate on the device: no host synchronisation
@@ -16,9 +18,10 @@ import torch
 from ..core import optim
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams
-from ..ops.rasterize import (RasterConfig, bin_gaussians, gather_raw_table,
-                             project_gaussians)
-from ..utils.transforms import transform_to_frame
+from ..ops.rasterize import (NEAR_CULL_Z, RasterConfig, bin_gaussians,
+                             gather_raw_table, project_gaussians)
+from ..utils.transforms import (normalize, pose_to_w2c, transform_points,
+                                transform_to_frame)
 from .losses import LossConfig, compute_loss_slots
 
 N_LOG = 7  # loss, im, depth, flat, iso, mean_density, mask_frac
@@ -34,20 +37,30 @@ class TrackingConfig(NamedTuple):
     bin_margin_px: float = 8.0
     mask_norm_candidate: bool = True
     lr_decay: float = 1.0
+    # cross-frame reuse of the tracking tile lists (read by the pipeline,
+    # which owns the BinningReuse): one binning widened to
+    # cross_frame_margin_px serves the frames between map edits, until the
+    # predicted pose drifts more than cross_frame_margin_px - bin_margin_px
+    reuse_binning: bool = True
+    cross_frame_margin_px: float = 16.0
+    # coarse-to-fine tracking (track_frame_pyramid): pyramid_levels - 1
+    # passes on 2^k-downsampled frames before the full-resolution pass,
+    # pyramid_iters iterations each (0 = num_iters), learning rates times
+    # pyramid_lr_scale^k at level k
+    pyramid_levels: int = 1
+    pyramid_iters: int = 0
+    pyramid_lr_scale: float = 1.0
     # the reference's opt-in knobs below are not ported yet; a config that
     # sets one raises NotImplementedError
     rebin_every_iter: bool = False
-    reuse_binning: bool = False
     gn_iters: int = 0
     tile_subsample: int = 1
-    pyramid_levels: int = 1
     fan_rounds: int = 0
     polyak_rho: float = 0.0
     early_stop_patience: int = 0
 
     def check_ported(self):
-        off = {"rebin_every_iter": False, "reuse_binning": False,
-               "gn_iters": 0, "tile_subsample": 1, "pyramid_levels": 1,
+        off = {"rebin_every_iter": False, "gn_iters": 0, "tile_subsample": 1,
                "fan_rounds": 0, "polyak_rho": 0.0, "early_stop_patience": 0}
         for knob, default in off.items():
             if getattr(self, knob) != default:
@@ -61,6 +74,94 @@ class TrackResult(NamedTuple):
     trans: torch.Tensor      # [3]
     iters_run: int
     loss_log: torch.Tensor   # [max_iters, N_LOG], nan-padded
+
+
+@torch.no_grad()
+def bin_at_pose(params: GaussianParams, alive, quat, trans, margin_px: float,
+                cam: Camera, rcfg: RasterConfig):
+    """Tile lists for the map as seen from (quat, trans), widened by
+    margin_px."""
+    mc, qc = transform_to_frame(params.means3d, params.unnorm_rotations,
+                                quat, trans, gaussians_grad=False,
+                                camera_grad=False)
+    proj = project_gaussians(mc, qc, params.log_scales, alive, cam,
+                             margin_px=float(margin_px))
+    return bin_gaussians(proj, cam, rcfg)
+
+
+@torch.no_grad()
+def max_pixel_drift(means3d, alive, q0, t0, q1, t1, cam: Camera,
+                    stride: int = 16) -> torch.Tensor:
+    """Max screen-space displacement (pixels, Chebyshev) of every
+    `stride`-th map point between two camera poses, over points within a
+    48 px band of the screen in either view: the cheap validity test for
+    reusing frozen tile lists across frames. inf when a point crosses the
+    near plane. Returns a 0-d tensor (no host synchronisation here)."""
+    pts = means3d.detach()[::stride]
+    al = alive[::stride]
+
+    def uv(q, t):
+        pc = transform_points(pose_to_w2c(normalize(q), t), pts)
+        z = torch.where(pc[:, 2] > 0, pc[:, 2],
+                        torch.full_like(pc[:, 2], 1e-6))
+        u = cam.fx * pc[:, 0] / z + cam.cx
+        v = cam.fy * pc[:, 1] / z + cam.cy
+        onscreen = ((u > -48.0) & (u < cam.width + 48.0)
+                    & (v > -48.0) & (v < cam.height + 48.0))
+        return u, v, pc[:, 2] > NEAR_CULL_Z, onscreen
+
+    u0, v0, m0, on0 = uv(q0, t0)
+    u1, v1, m1, on1 = uv(q1, t1)
+    # points that left/entered the near frustum force a rebin too
+    changed_vis = (m0 ^ m1) & (on0 | on1) & al
+    ok = al & m0 & m1 & (on0 | on1)
+    d = torch.maximum(torch.abs(u0 - u1), torch.abs(v0 - v1))
+    drift = torch.max(torch.where(ok, d, torch.zeros_like(d)))
+    return torch.where(changed_vis.any(),
+                       torch.full_like(drift, float("inf")), drift)
+
+
+class BinningReuse:
+    """Host-side cache of tracking tile lists across frames.
+
+    The map only changes on map_every frames; between map edits the same
+    (margin-widened) binning serves every tracking frame. The owner calls
+    `invalidate()` whenever the map state changes (densify, a mapping
+    phase, compaction, capacity growth, a changed intersection cap:
+    anything that edits rows, their order or the binning's configuration)
+    and `get()` per frame; `get` rebins when the predicted pose has drifted
+    beyond the margin budget. The drift test is the one host
+    synchronisation per frame.
+    """
+
+    def __init__(self, cam: Camera, rcfg: RasterConfig,
+                 margin_px: float = 16.0, slack_px: float = 8.0):
+        self.cam = cam
+        self.rcfg = rcfg
+        self.margin_px = float(margin_px)
+        # pixels reserved for within-frame optimizer motion
+        self.slack_px = float(slack_px)
+        self._binning = None
+        self._pose = None
+        self.n_rebins = 0
+        self.n_reuses = 0
+
+    def invalidate(self):
+        self._binning = None
+
+    def get(self, params: GaussianParams, alive, quat, trans):
+        if self._binning is not None:
+            bq, bt = self._pose
+            drift = float(max_pixel_drift(params.means3d, alive, bq, bt,
+                                          quat, trans, self.cam))
+            if drift <= self.margin_px - self.slack_px:
+                self.n_reuses += 1
+                return self._binning
+        self._binning = bin_at_pose(params, alive, quat, trans,
+                                    self.margin_px, self.cam, self.rcfg)
+        self._pose = (quat, trans)
+        self.n_rebins += 1
+        return self._binning
 
 
 def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig):
@@ -116,16 +217,10 @@ def track_frame(params: GaussianParams, alive, init_quat, init_trans, gt_im,
     assert lcfg.tracking
     tcfg.check_ported()
     params = GaussianParams(*[p.detach() for p in params])
-    with torch.no_grad():
-        if binning is None:
-            mc0, qc0 = transform_to_frame(params.means3d,
-                                          params.unnorm_rotations, init_quat,
-                                          init_trans, gaussians_grad=False,
-                                          camera_grad=False)
-            proj0 = project_gaussians(mc0, qc0, params.log_scales, alive,
-                                      cam, margin_px=tcfg.bin_margin_px)
-            binning = bin_gaussians(proj0, cam, rcfg)
-        raw = gather_raw_table(params, binning.tile_gauss)
+    if binning is None:
+        binning = bin_at_pose(params, alive, init_quat, init_trans,
+                              tcfg.bin_margin_px, cam, rcfg)
+    raw = gather_raw_table(params, binning.tile_gauss)
     counts = binning.tile_count
 
     def loss_fn(pose):
@@ -137,6 +232,60 @@ def track_frame(params: GaussianParams, alive, init_quat, init_trans, gt_im,
         loss_fn, (init_quat, init_trans), tcfg)
     return TrackResult(quat=best_q, trans=best_t, iters_run=iters,
                        loss_log=log)
+
+
+def pyramid_cam(cam: Camera, k: int) -> Camera:
+    """Camera for pyramid level k (2^k downsample), intrinsics scaled the
+    way the dataset layer scales them on a resize."""
+    s = 1 << k
+    return Camera(width=cam.width // s, height=cam.height // s,
+                  fx=cam.fx / s, fy=cam.fy / s, cx=cam.cx / s,
+                  cy=cam.cy / s, near=cam.near, far=cam.far)
+
+
+def downsample_frame(gt_im, gt_depth, k: int):
+    """[3,H,W] + [1,H,W] -> level-k pyramid frame: colour 2^k
+    average-pooled, depth stride-subsampled (no edge mixing; zeros stay
+    exact zeros for the valid-depth mask)."""
+    s = 1 << k
+    H, W = gt_im.shape[-2], gt_im.shape[-1]
+    h, w = H // s, W // s
+    im = gt_im[:, : h * s, : w * s].reshape(3, h, s, w, s).mean((2, 4))
+    d = gt_depth[:, : h * s: s, : w * s: s]
+    return im, d.contiguous()
+
+
+def track_frame_pyramid(params: GaussianParams, alive, init_quat, init_trans,
+                        gt_im, gt_depth, cam: Camera, rcfg: RasterConfig,
+                        lcfg: LossConfig, tcfg: TrackingConfig,
+                        binning=None) -> TrackResult:
+    """Coarse-to-fine tracking: pyramid_levels - 1 coarse passes (each bins
+    the map at its own camera) feed the full-resolution track_frame, which
+    takes `binning`. The pose carries across levels; the best-candidate
+    bookkeeping restarts per level (loss scales differ across levels).
+    Returns the full-resolution result with iters_run accumulated and the
+    levels' logs concatenated."""
+    q, t = init_quat, init_trans
+    coarse_logs = []
+    coarse_iters = tcfg.pyramid_iters or tcfg.num_iters
+    for k in range(tcfg.pyramid_levels - 1, 0, -1):
+        cam_k = pyramid_cam(cam, k)
+        im_k, d_k = downsample_frame(gt_im, gt_depth, k)
+        lr_k = tcfg.pyramid_lr_scale ** k
+        tcfg_k = tcfg._replace(num_iters=coarse_iters, pyramid_levels=1,
+                               use_depth_loss_thres=False,
+                               lr_quat=tcfg.lr_quat * lr_k,
+                               lr_trans=tcfg.lr_trans * lr_k)
+        res = track_frame(params, alive, q, t, im_k, d_k, cam_k, rcfg, lcfg,
+                          tcfg_k)
+        q, t = res.quat, res.trans
+        coarse_logs.append(res.loss_log[: res.iters_run])
+    res = track_frame(params, alive, q, t, gt_im, gt_depth, cam, rcfg, lcfg,
+                      tcfg._replace(pyramid_levels=1), binning=binning)
+    # one contiguous log so iters_run always indexes valid rows
+    extra = sum(r.shape[0] for r in coarse_logs)
+    return res._replace(iters_run=res.iters_run + extra,
+                        loss_log=torch.cat(coarse_logs + [res.loss_log]))
 
 
 def initialize_camera_pose(cam_rots, cam_trans, time_idx: int,

@@ -1,0 +1,65 @@
+"""The port's CLI alone: scripts.splatam.main on the port's smoke config, on
+the CPU (the kernels' plain versions), then evaluation."""
+import csv
+import json
+import os
+
+import numpy as np
+
+from isogs_slam_tpu_torch.scripts import splatam
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMOKE = os.path.join(ROOT, "isogs_slam_tpu_torch", "configs", "synthetic",
+                     "smoke.py")
+
+
+def test_cli_end_to_end_on_cpu(tmp_path):
+    """The port's CLI on its smoke config (cut to 96x128, 12 mapping
+    iterations), then the asserts of the JAX package's end-to-end test:
+    ATE < 8 cm, PSNR > 18 dB, depth L1 < 40 cm, poses moved, online-eval
+    artifacts, runtime stats, checkpoints."""
+    slam = splatam.main([
+        SMOKE, "--end-at", "6", "--device", "cpu",
+        "--set", f"workdir={tmp_path}",
+        "--set", "data.desired_image_height=96",
+        "--set", "data.desired_image_width=128",
+        "--set", "mapping.num_iters=12", "--set", "map_every=3",
+        "--set", "keyframe_every=3", "--set", "tracking.num_iters=10"])
+    res = slam.eval_results
+    assert np.isfinite(res["Final Average ATE RMSE (cm)"])
+    assert res["Final Average ATE RMSE (cm)"] < 8.0, res
+    assert res["Average PSNR"] > 18.0, res
+    assert res["Average Depth L1 (cm)"] < 40.0, res
+    assert 0.0 < res["Average MS-SSIM"] <= 1.0 + 1e-6
+    assert res["LPIPS Variant"] == "rand-alexnet"
+    assert np.isfinite(res["Average LPIPS"])
+    assert np.abs(slam.cam_trans[:, 1:7]).max() > 1e-4
+
+    out = slam.output_dir
+    online = os.path.join(out, "eval_online")
+    online_psnr = np.loadtxt(os.path.join(online, "online_psnr.txt"))
+    online_ate = np.loadtxt(os.path.join(online, "online_ate.txt"))
+    assert online_psnr.size >= 2 and np.isfinite(online_psnr).all()
+    assert np.isfinite(online_ate).all()
+    with open(os.path.join(online, "online_summary.json")) as f:
+        summary = json.load(f)
+    assert np.isfinite(summary["Online Average PSNR"])
+    assert summary["Frames Evaluated"] == online_psnr.size
+    with open(os.path.join(out, "runtime_stats.json")) as f:
+        stats = json.load(f)
+    assert stats["Final Frame"] == 6
+    assert stats["Average Tracking/Frame Time (s)"] > 0
+    assert stats["Tracking Binning Rebins"] \
+        + stats["Tracking Binning Reuses"] == 6
+    with open(os.path.join(out, "eval", "eval_summary.json")) as f:
+        assert json.load(f) == res
+    for name in ("params0.npz", "params6.npz", "metrics_log.csv",
+                 "config.py", "overrides.txt"):
+        assert os.path.exists(os.path.join(out, name)), name
+    with open(os.path.join(out, "metrics_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    assert {r["stage"] for r in rows} == {"tracking", "mapping"}
+    assert all(np.isfinite(float(r["loss"])) for r in rows)
+    track_mask = [float(r["mask_frac"]) for r in rows
+                  if r["stage"] == "tracking"]
+    assert min(track_mask) > 0.1

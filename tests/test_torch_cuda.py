@@ -182,7 +182,58 @@ def test_launch_counters_count_launches(dev):
     g, c = _gdata(4, 128, 4, 2, seed=9)
     _cuda.reset_launches()
     composite_fwd_cuda(g.to(dev), c.to(dev), 4, 2, 3)
-    assert _cuda.LAUNCHES["composite_fwd[K=128]"] == 1
+    assert _cuda.LAUNCHES == {"composite_fwd[T=4,K=128]": 1}
+
+
+@pytest.mark.parametrize("K", [768, 1024])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_composite_kernels_large_k(dev, K, out_dtype):
+    """The slot counts the pipeline escalates to when a 512 cap drops true
+    candidates: the kernels stage 32-slot batches, so K only lengthens
+    their loops."""
+    g, c = _gdata(12, K, 4, 4, seed=K)
+    c[2] = K - 1
+    last = _bwd_against_plain(dev, g, c, 4, out_dtype, seed=K + 1)
+    assert int(last.max()) < K
+
+
+@pytest.mark.parametrize("K", [256, 1000])
+def test_fused_render_partial_tiles(dev, K):
+    """A camera whose last tile column is 8 px wide and last tile row 4 px
+    high (a 2x pyramid level of 1200x680 has both), at a K that is and is
+    not a multiple of the 128-slot padding: the fused render on the card
+    against the CPU, cropped to the image."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.rasterize import (RasterConfig,
+                                                    render_rgbd_sil)
+    rng = np.random.default_rng(3)
+    n = 1200
+    means = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    means[:, 2] += 2.5
+    arrs = [means, rng.normal(0, 1, (n, 4)),
+            np.log(rng.uniform(0.02, 0.1, (n, 3))),
+            rng.uniform(-2, 3, (n, 1)), rng.uniform(0, 1, (n, 3))]
+    cam = Camera(width=88, height=52, fx=70.0, fy=70.0, cx=43.5, cy=25.5)
+    assert (cam.tiles_x, cam.tiles_y) == (6, 4)
+    cfg = RasterConfig(max_per_tile=K, grad_scatter_bf16=False)
+
+    def run(device):
+        ps = [torch.tensor(a, dtype=torch.float32, device=device,
+                           requires_grad=True) for a in arrs]
+        im, d, s, dsq, _ = render_rgbd_sil(
+            *ps, torch.ones(n, dtype=torch.bool, device=device), cam, cfg)
+        loss = (im ** 2).sum() + d.sum() + 0.5 * s.sum() + dsq.sum()
+        gs = torch.autograd.grad(loss, ps)
+        return [x.detach().cpu() for x in (im, d, s)], [x.cpu() for x in gs]
+
+    (im1, d1, s1), g1 = run("cpu")
+    (im2, d2, s2), g2 = run(dev)
+    assert im2.shape == (3, 52, 88) and s2.shape == (52, 88)
+    assert float((im1 - im2).abs().max()) < 1e-5
+    assert float((d1 - d2).abs().max()) < 1e-4
+    assert float((s1 - s2).abs().max()) < 1e-5
+    for a, b in zip(g1, g2):
+        assert float((a - b).abs().max()) / float(a.abs().max()) < 1e-4
 
 
 def test_fused_render_cuda_matches_cpu(dev):
