@@ -8,33 +8,47 @@ before the result line):
   2. build the CUDA kernels from csrc/ with nvcc (one process per source,
      all at once) and print ptxas' registers / shared memory / spills;
   3. hold every kernel against its plain PyTorch version at the shapes the
-     two paths below give it, on inputs from a real render of the synthetic
+     paths below give it, on inputs from a real render of the synthetic
      room at 1200x680: composite forward/backward at K = 256 (tracking),
      K = 512 (mapping, bf16 backward), K = 768 and 1024 (the slot counts
-     the pipeline escalates to) and at the 600x340 camera of the tracking
-     pyramid (836 tiles, partial tiles on both edges); the tile-to-image
-     crop at both cameras; segment reduce at N = capacity; also the plain
-     PyTorch form of the backward kernel's algebra against autograd through
-     the plain forward; time kernel, plain version and (segment reduce)
+     the pipeline escalates to), at the 600x340 camera of the tracking
+     pyramid (836 tiles, partial tiles on both edges), and on the virtual
+     single-row grids of the fast modes (tiles_x = T): every 4th tile of
+     both tracking cameras (T = 806 and 209) and a mapping stripe of 13
+     tile rows (T = 975, bf16 backward) at K = 512, 768 and 1024; the
+     tile-to-image crop at both cameras; segment reduce at N = capacity on
+     all tiles' rows and on a stripe's rows only; also the plain PyTorch
+     form of the backward kernel's algebra against autograd through the
+     plain forward; time kernel, plain version and (segment reduce)
      torch.segment_reduce;
+  3b. "subset route": render_tiles_subset's two backward routes (index_add_
+     of the rows against expansion scatter + segment reduce) at the
+     stripe's shape and at a quarter of it: same gradients, both times;
+  3c. "cull": tile_cull and tight_rect on the full-width scene give the
+     plain binning's image and gradients; intersection counts, summed
+     tile counts and the compositing kernels' times with and without;
   4. the per-frame step driven by hand (the earlier path, cut in depth):
-     first-frame init, two tracking frames from the ground-truth pose,
-     densify + 10 mapping iterations, with the kernels' launch counters
-     set to 0 before and read after;
-  5. the pipeline path: the port's CLI (scripts.splatam.main) in-process on
-     configs/synthetic/full_res.py at 1200x680, `--end-at 30` with
-     evaluation and checkpoints into a temporary run directory, launch
-     counters set to 0 before and read after; prints timings, tile-list
-     reuse, cap escalations, capacity growths, peak memory, the quality
-     metrics and the launch counters, and fails on a kernel that was not
-     launched, a non-finite loss or parameter, a tracking mask under 0.1,
-     ATE >= 2 cm or PSNR <= 25 dB;
+     first-frame init, two tracking frames from the ground-truth pose, one
+     more tracking frame for each tracking refinement (GN polish, fan,
+     Polyak, early stop, rebin_every_iter), densify + 10 mapping
+     iterations, with the kernels' launch counters set to 0 before and
+     read after;
+  5. the pipeline paths: the port's CLI (scripts.splatam.main) in-process
+     at 1200x680 with evaluation and checkpoints into a temporary run
+     directory, launch counters set to 0 before and read after each: the
+     exact configuration (configs/synthetic/full_res.py, `--end-at 15`)
+     and the fast one (configs/synthetic/full_res_fastlegal.py,
+     `--end-at 30`); prints timings, tile-list reuse, cap escalations,
+     capacity growths, peak memory, the quality metrics and the launch
+     counters, and fails on a kernel that was not launched, a non-finite
+     loss or parameter, a tracking mask under 0.1, ATE >= 2 cm or
+     PSNR <= 25 dB;
   6. the `kernels` JSON line;
   7. the result line {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
-(`--profile` adds a torch.profiler table of one more tracking frame and
-mapping phase of the pipeline path after phase 5.)
+(`--profile` adds, after each pipeline path, a torch.profiler table of one
+more tracking frame and mapping phase of that path.)
 """
 from __future__ import annotations
 
@@ -49,7 +63,8 @@ import time
 
 H, W = 680, 1200
 TRACK_ITERS, MAP_ITERS, N_FRAMES = 10, 10, 2     # the hand-driven path
-END_AT = 30                                   # the pipeline path
+END_AT_EXACT, END_AT_FAST = 15, 30             # the pipeline paths
+SUB = 4                     # the fast configuration's tile_subsample
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 SOURCES = {"composite_fwd": "isogs_slam_tpu_torch/csrc/composite.cu",
@@ -154,14 +169,22 @@ def load_frame(ds, i, dev):
 
 def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
     """The compositing kernels' inputs at the paths' shapes, from a real
-    render, as {tag: (records, bins, camera, backward dtype)}: "track":
-    frame 1's slot table [T, 256, 10] at its ground-truth pose; "pyramid":
-    the same at the 600x340 camera of pyramid level 1; "map", "map768",
-    "map1024": the fused table at keyframe 0's pose gathered by bins of
-    K = 512, 768 and 1024."""
+    render, as {tag: dict(g=records, cnt=counts, tiles_x=, bdt=backward
+    dtype, desc=)}: "track": frame 1's slot table [T, 256, 10] at its
+    ground-truth pose; "pyramid": the same at the 600x340 camera of pyramid
+    level 1; "map", "map768", "map1024": the fused table at keyframe 0's
+    pose gathered by bins of K = 512, 768 and 1024; "track_sub",
+    "pyramid_sub": every SUB-th tile of the two tracking cameras, and
+    "stripe", "stripe768", "stripe1024": a mapping stripe of the three
+    mapping binnings, each cut by the port's own subset functions onto a
+    virtual single-row grid (tiles_x = T). Also returns what the later
+    phases reuse: {"state": the map, "table": the fused table, "proj":
+    its projection, "bins": {K: binning}}."""
     import torch
     from isogs_slam_tpu_torch.ops.rasterize import (
-        _slot_gdata, bin_gaussians, gather_raw_table, project_gaussians)
+        _slot_gdata, _virtual_row_shift, bin_gaussians, gather_raw_table,
+        project_gaussians)
+    from isogs_slam_tpu_torch.slam.mapping import select_stripe, stripe_shape
     from isogs_slam_tpu_torch.slam.pointcloud import initialize_first_frame
     from isogs_slam_tpu_torch.slam.tracking import bin_at_pose, pyramid_cam
     from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
@@ -178,7 +201,20 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
             b = bin_at_pose(p0, state0.alive, q1, t1, 8.0, c, rcfg_track)
             g = _slot_gdata(gather_raw_table(p0, b.tile_gauss), q1, t1,
                             c).contiguous()
-            out[tag] = (g, b, c, torch.float32)
+            out[tag] = dict(g=g, cnt=b.tile_count, tiles_x=c.tiles_x,
+                            bdt=torch.float32, bins=b,
+                            desc=f"camera {c.width}x{c.height}")
+            # the fast tracker's strided subset on its virtual row
+            ts = max(c.num_tiles // SUB, 1)
+            sel = torch.arange(ts, device=dev) * SUB
+            gs = _slot_gdata(gather_raw_table(p0, b.tile_gauss[sel]), q1,
+                             t1, c, tile_ids=sel)
+            gs = (gs + _virtual_row_shift(sel, c, 10, gs.dtype)).contiguous()
+            out[tag + "_sub"] = dict(
+                g=gs, cnt=b.tile_count[sel].contiguous(), tiles_x=ts,
+                bdt=torch.float32, bins=None,
+                desc=f"every {SUB}th tile of {c.width}x{c.height} on a "
+                     f"virtual row")
         # mapping records (K = 512): the fused table at keyframe 0's pose
         mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations, q0,
                                     t0_, gaussians_grad=False,
@@ -191,13 +227,27 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
                              proj.conic[:, 1], proj.conic[:, 2], op,
                              p0.rgb_colors[:, 0], p0.rgb_colors[:, 1],
                              p0.rgb_colors[:, 2], mc[:, 2]], dim=1)
-        for tag, k in (("map", rcfg.max_per_tile), ("map768", 768),
-                       ("map1024", 1024)):
+        rows_core, rows_w, _, _ = stripe_shape(cam.tiles_y, cam.tiles_x, SUB)
+        sel, _ = select_stripe(1, cam.tiles_y, cam.tiles_x, rows_core,
+                               rows_w, dev)
+        shift = _virtual_row_shift(sel, cam, 10, table.dtype)
+        bins = {}
+        for tag, k in (("", rcfg.max_per_tile), ("768", 768),
+                       ("1024", 1024)):
             b = bin_gaussians(proj, cam, rcfg._replace(max_per_tile=k),
                               emit_exp=True)
-            out[tag] = (table[b.tile_gauss].contiguous(), b, cam,
-                        torch.bfloat16)
-    return out
+            bins[k] = b
+            out["map" + tag] = dict(
+                g=table[b.tile_gauss].contiguous(), cnt=b.tile_count,
+                tiles_x=cam.tiles_x, bdt=torch.bfloat16, bins=b,
+                desc=f"camera {cam.width}x{cam.height}")
+            out["stripe" + tag] = dict(
+                g=(table[b.tile_gauss[sel]] + shift).contiguous(),
+                cnt=b.tile_count[sel].contiguous(), tiles_x=sel.shape[0],
+                bdt=torch.bfloat16, bins=None,
+                desc=f"stripe of {rows_w} tile rows on a virtual row")
+    return out, dict(state=state0, table=table, proj=proj, bins=bins,
+                     stripe_sel=sel, pose0=(q0, t0_))
 
 
 def check_tile_crop(cam, dev):
@@ -220,11 +270,192 @@ def check_tile_crop(cam, dev):
           f"tiles -> image {tuple(img.shape)} equal to direct indexing")
 
 
-def pipeline_path(root, end_at, extra_args=()):
-    """Phase 5: the port's CLI in-process on configs/synthetic/full_res.py
+def _render_loss_grads(params, alive, pose, cam, cfg, binning, sel=None):
+    """Loss and parameter gradients of a fused render against a frozen
+    binning (the whole image, or the tiles `sel` through
+    render_tiles_subset), with the test suite's loss."""
+    import torch
+    from isogs_slam_tpu_torch.core.gaussians import GaussianParams
+    from isogs_slam_tpu_torch.ops.rasterize import (MAPPING_LIVE_COLS,
+                                                    render_rgbd_sil,
+                                                    render_tiles_subset)
+    from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
+    leaves = GaussianParams(*[p.detach().requires_grad_(True)
+                              for p in params])
+    with torch.enable_grad():
+        mc, qc = transform_to_frame(leaves.means3d, leaves.unnorm_rotations,
+                                    pose[0], pose[1], gaussians_grad=True,
+                                    camera_grad=False)
+        if sel is None:
+            im, depth, sil, dsq, _ = render_rgbd_sil(
+                mc, qc, leaves.log_scales, leaves.logit_opacities,
+                leaves.rgb_colors, alive, cam, cfg, binning=binning,
+                live_grad_cols=MAPPING_LIVE_COLS)
+            loss = ((im * im).sum() + depth.abs().sum() + (sil ** 3).sum()
+                    + dsq.sum())
+            image = torch.cat([im, depth, sil[None], dsq]).detach()
+        else:
+            out, ft, _ = render_tiles_subset(
+                mc, qc, leaves.log_scales, leaves.logit_opacities,
+                leaves.rgb_colors, alive, sel, binning, cam, cfg,
+                live_grad_cols=MAPPING_LIVE_COLS)
+            loss = ((out[..., :3] ** 2).sum() + out[..., 3].abs().sum()
+                    + ((1 - ft) ** 3).sum() + out[..., 4].sum())
+            image = out.detach()
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads, image
+
+
+def _max_rel(grads, ref):
+    """Largest |g - ref| over each parameter's max |ref|."""
+    return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(grads, ref))
+
+
+def subset_routes(inputs, ctx, cam, capacity, rcfg, dev):
+    """Phase 3b: the scatter route (index_add_ of the live columns) against
+    the segment-reduce route (expansion scatter + kernel C) of
+    render_tiles_subset, at the mapping stripe's shape and at a quarter of
+    it: same gradients within the bf16 tolerance, the whole render's time
+    by either route, and the two aggregations alone on kernel B's rows, at
+    the intersection capacity this configuration starts with and at the
+    one a run grows to."""
+    import torch
+    from isogs_slam_tpu_torch.ops.rasterize import (_expansion_reduce,
+                                                    _index_add_rows)
+    t0 = time.perf_counter()
+    st = ctx["state"]
+    K = rcfg.max_per_tile
+    b = ctx["bins"][K]
+    sel_full = ctx["stripe_sel"]
+    dg_full = inputs["stripe"]["dg"]
+    n = st.params.means3d.shape[0]
+    live = tuple(range(10))
+    for sel, name in ((sel_full, "stripe"),
+                      (sel_full[: sel_full.shape[0] // 4], "quarter stripe")):
+        rows = sel.shape[0] * K
+        # one untimed call of each route first: the allocator's warm-up
+        for route in ("scatter", "segreduce"):
+            _render_loss_grads(st.params, st.alive, ctx["pose0"], cam,
+                               rcfg._replace(bwd_mode=route), b, sel)
+        got = {}
+        for route in ("scatter", "segreduce"):
+            cfg = rcfg._replace(bwd_mode=route)
+            fn = lambda: _render_loss_grads(st.params, st.alive,
+                                            ctx["pose0"], cam, cfg, b, sel)
+            got[route] = fn()
+            got[route + "_ms"] = cuda_ms(fn, 10)
+        f32 = _render_loss_grads(st.params, st.alive, ctx["pose0"], cam,
+                                 rcfg._replace(bwd_mode="segreduce",
+                                               grad_scatter_bf16=False), b,
+                                 sel)
+        rel = _max_rel(got["scatter"][1], got["segreduce"][1])
+        rel32 = _max_rel(got["segreduce"][1], f32[1])
+        # both routes round kernel B's rows to bf16 once, and the scatter
+        # route also accumulates in bf16: the segment-reduce route is held
+        # to one bf16 rounding of the parameter's max from its f32 form,
+        # the two routes to two roundings (one of each) from one another
+        print(f"[subset route] {name}: {sel.shape[0]} tiles x K {K} = "
+              f"{rows} rows; gradients scatter vs segreduce max error / "
+              f"parameter max {rel:.3e} (tol 1.6e-02), segreduce vs its f32 "
+              f"form {rel32:.3e} (tol 7.8e-03); loss equal: "
+              f"{float(got['scatter'][0]) == float(got['segreduce'][0])}")
+        if not (rel < 2 ** -6 and rel32 < 2 ** -7):
+            raise AssertionError(f"the subset routes disagree ({name})")
+        print(f"[subset route] {name}: whole render forward + backward "
+              f"scatter {got['scatter_ms']:.3f} ms, segreduce "
+              f"{got['segreduce_ms']:.3f} ms")
+    # the two aggregations alone, each as its Function's backward runs it,
+    # on kernel B's rows as they cross the autograd boundary (f32), for a
+    # quarter stripe, the stripe and every tile, at the intersection
+    # capacity this configuration starts with and at the one a run grows to
+    sizes = (("quarter stripe", sel_full[: sel_full.shape[0] // 4],
+              dg_full[: sel_full.shape[0] // 4]),
+             ("stripe", sel_full, dg_full),
+             ("all tiles", torch.arange(cam.num_tiles, device=dev),
+              inputs["map"]["dg"]))
+    for name, sel, dg in sizes:
+        dg = dg[:, :K].float().contiguous()
+        idx, pos = b.tile_gauss[sel], b.slot_exp_pos[sel]
+        ms_s = cuda_ms(lambda: _index_add_rows(dg, idx, n, live, True), 20)
+        line = (f"[subset route] aggregation alone, {name} "
+                f"({sel.shape[0] * K} rows): index_add_ {ms_s:.4f} ms")
+        for cap in (rcfg.max_isect(capacity), 14417920):
+            ms_r = cuda_ms(lambda: _expansion_reduce(
+                dg.to(torch.bfloat16), pos, b.exp_offsets, cap, n, live), 20)
+            line += (f"; expansion scatter + kernel C {ms_r:.4f} ms at "
+                     f"intersection capacity {cap}")
+        print(line)
+    phase("subset route", t0)
+
+
+def cull_phase(ctx, cam, rcfg, dev):
+    """Phase 3c: tile_cull and tight_rect on the full-width scene. With no
+    drift budget (cull_q_slack 1) each gives the plain binning's image
+    (1e-5 of its range) and parameter gradients (1e-4 of each parameter's
+    max, f32 rows); prints the intersection count, the summed tile counts
+    and kernel A's and B's times with and without, also under the
+    budgets the mapper passes (cull_q_slack 1.5, logit drift 6.4)."""
+    import torch
+    from isogs_slam_tpu_torch.ops import composite as comp
+    from isogs_slam_tpu_torch.ops.rasterize import bin_gaussians
+    t0 = time.perf_counter()
+    st, proj, table = ctx["state"], ctx["proj"], ctx["table"]
+    op = torch.sigmoid(st.params.logit_opacities[:, 0]).detach()
+    # K = 1024 holds every candidate of every tile: under a smaller cap the
+    # tight rects, which shrink the expansion, would also change which true
+    # candidates the cap drops
+    base = rcfg._replace(grad_scatter_bf16=False, max_per_tile=1024)
+    rng = torch.Generator(device=dev).manual_seed(2)
+    ref = None
+    for name, knobs, budget in (
+            ("plain", {}, {}),
+            ("tile_cull", dict(tile_cull=True, cull_q_slack=1.0), {}),
+            ("tight_rect", dict(tight_rect=True, cull_q_slack=1.0), {}),
+            ("tile_cull, mapping budget", dict(tile_cull=True),
+             dict(cull_logit_drift=3.2 * 0.05 * 40)),
+            ("tight_rect, mapping budget", dict(tight_rect=True),
+             dict(cull_logit_drift=3.2 * 0.05 * 40))):
+        cfg = base._replace(**knobs)
+        with torch.no_grad():
+            b = bin_gaussians(proj, cam, cfg, emit_exp=True, opacity=op,
+                              **budget)
+        loss, grads, image = _render_loss_grads(st.params, st.alive,
+                                                ctx["pose0"], cam, cfg, b)
+        if ref is None:
+            ref = (loss, grads, image)
+        img_err = float((image - ref[2]).abs().max()
+                        / ref[2].abs().max().clamp(min=1.0))
+        rel = _max_rel(grads, ref[1])
+        with torch.no_grad():
+            g = table[b.tile_gauss].contiguous()
+            out, ft, last, tend = comp.composite_fwd_cuda(g, b.tile_count, 4,
+                                                          cam.tiles_x, 3)
+            gout = torch.randn(out.shape, generator=rng, device=dev)
+            dfin = torch.randn(ft.shape, generator=rng, device=dev)
+            ms_a = cuda_ms(lambda: comp.composite_fwd_cuda(
+                g, b.tile_count, 4, cam.tiles_x, 3), 20)
+            ms_b = cuda_ms(lambda: comp.composite_bwd_cuda(
+                g, b.tile_count, gout, dfin, last, tend, 4, cam.tiles_x, 3,
+                torch.bfloat16), 20)
+        print(f"[cull] {name}: {int(b.n_isect)} intersections, "
+              f"{int(b.tile_count.sum())} slots in the tile lists (max "
+              f"{int(b.tile_count.max())}), {int(b.n_overflow)} dropped by "
+              f"the caps; image max error {img_err:.3e} (tol 1e-5), "
+              f"gradient max error / parameter max {rel:.3e} (tol 1e-4); "
+              f"A {ms_a:.4f} ms, B (bf16) {ms_b:.4f} ms")
+        if not (img_err < 1e-5 and rel < 1e-4):
+            raise AssertionError(f"{name} changes the render")
+        del g, out, ft, last, tend, gout, dfin
+    phase("cull", t0)
+
+
+def pipeline_path(root, config_name, end_at, extra_args=()):
+    """Phase 5: the port's CLI in-process on configs/synthetic/<config_name>
     with evaluation and checkpoints, into a temporary run directory; the
     launch counters are set to 0 before and read after. Prints the run's
-    numbers, raises on a failed check, returns the launch counts."""
+    numbers, raises on a failed check, returns (launch counts, seconds of
+    each tracking frame, seconds of each mapping phase)."""
     import numpy as np
     import torch
     from isogs_slam_tpu_torch.io.checkpoints import (latest_checkpoint,
@@ -238,7 +469,7 @@ def pipeline_path(root, end_at, extra_args=()):
     try:
         slam = splatam.main([
             os.path.join(root, "isogs_slam_tpu_torch", "configs",
-                         "synthetic", "full_res.py"),
+                         "synthetic", config_name),
             "--end-at", str(end_at), "--set", f"workdir={run_dir}",
             "--set", "save_checkpoints=True",
             "--set", f"checkpoint_interval={end_at}", *extra_args])
@@ -255,7 +486,10 @@ def pipeline_path(root, end_at, extra_args=()):
     st, ev, res = slam.stats, slam.events, slam.eval_results
     tr, mp = st["tracking_frame_time"][1:], st["mapping_frame_time"]
     n_alive = int(slam.state.num_alive())
-    print(f"pipeline: frames 0-{end_at} + eval in {t_cli:.1f} s (frames are "
+    print(f"pipeline {config_name}: frames 0-{end_at} + eval in {t_cli:.1f} "
+          f"s; tracking.tile_subsample {slam.tcfg.tile_subsample}, "
+          f"mapping.tile_subsample {slam.mcfg.tile_subsample}, "
+          f"exact_polish_iters {slam.mcfg.exact_polish_iters} (frames are "
           f"rendered by the dataset's prefetch thread on the same stream, "
           f"inside these times)")
     print(f"tracking s/frame: mean {np.mean(tr):.4f} min {np.min(tr):.4f} "
@@ -283,7 +517,8 @@ def pipeline_path(root, end_at, extra_args=()):
     print(f"tracking mask_frac: min {min(st['tracking_mask_frac']):.3f}; "
           f"checkpoint files {[c for c in ckpts if c.startswith('params')]}")
     print(f"launches on the pipeline path {launches_cli}")
-    phase(f"pipeline path (CLI, {end_at + 1} frames + eval)", t0)
+    phase(f"pipeline path (CLI, {config_name}, {end_at + 1} frames + eval)",
+          t0)
     if ck_frame != end_at or ck["means3D"].shape[0] != n_alive:
         raise AssertionError("the last checkpoint does not hold the map")
     vals = np.array([[float(r[k]) for k in ("loss", "image_loss",
@@ -302,7 +537,7 @@ def pipeline_path(root, end_at, extra_args=()):
         raise AssertionError(f"the run collapsed: {res}")
     if "--profile" in sys.argv[1:]:
         profile_pipeline(slam, end_at + 1)
-    return launches_cli
+    return launches_cli, list(tr), list(mp)
 
 
 def main() -> int:
@@ -383,21 +618,24 @@ def main() -> int:
 
     # 3. each kernel against its plain version on a real render's inputs
     t0 = time.perf_counter()
-    inputs = composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev)
+    inputs, ctx = composite_inputs(frames, cam, capacity, rcfg, rcfg_track,
+                                   dev)
     results = {}
     rng = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
         for c in (cam, pyramid_cam(cam, 1)):
             check_tile_crop(c, dev)
-        for tag, (g, b, c, bdt) in inputs.items():
+        for tag, rec in inputs.items():
+            g, cnt, tx, bdt, b = (rec["g"], rec["cnt"], rec["tiles_x"],
+                                  rec["bdt"], rec["bins"])
             T, K, C = g.shape
-            cnt = b.tile_count
-            tx = c.tiles_x
-            print(f"[{tag}] camera {c.width}x{c.height} gdata "
+            print(f"[{tag}] {rec['desc']}: tiles_x {tx}, gdata "
                   f"{tuple(g.shape)} slots {int(cnt.sum())} max count "
-                  f"{int(cnt.max())}; binning: {int(b.n_isect)} "
-                  f"intersections, {int(b.n_overflow)} dropped by the caps "
-                  f"({int(b.n_true_overflow)} of them true candidates)")
+                  f"{int(cnt.max())}, u up to {float(g[..., 0].max()):.1f}"
+                  + ("" if b is None else
+                     f"; binning: {int(b.n_isect)} intersections, "
+                     f"{int(b.n_overflow)} dropped by the caps "
+                     f"({int(b.n_true_overflow)} of them true candidates)"))
             out, ft, last, tend = comp.composite_fwd_cuda(g, cnt, 4, tx, 3)
             out_p, ft_p = comp.composite_fwd_plain(g, cnt, 4, tx, 3,
                                                    chunk=32)
@@ -411,6 +649,7 @@ def main() -> int:
             bad = int((err_o > tol).any(-1).sum() + (err_f > 1e-5).sum())
             print(f"[{tag}] composite_fwd max_abs_err {fwd_err:.3e} "
                   f"(tol {tol:.1e}); pixels over tol {bad} of {T * 256}")
+            rec["flipped"] = bad
             if bad > max(2, 1e-5 * T * 256) or not np.isfinite(fwd_err):
                 raise AssertionError(f"composite_fwd disagrees ({tag})")
 
@@ -479,58 +718,79 @@ def main() -> int:
                 bms, by = bound(nb, no)
                 results[f"{name}[T={T},K={K}]"] = dict(
                     kernel=name, max_abs_err=err, ms=ms, plain_ms=pms,
-                    bound_ms=bms, bound_by=by, library_ms=None)
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    flipped_pixels=bad, tiles_x=tx)
                 print(f"[{tag}] {name}[T={T},K={K}] {ms:.4f} ms (plain "
                       f"{pms:.2f} ms, bound {bms:.4f} ms by {by})")
-            if tag == "map":
-                dg_map, b_map = dg, b
+            if tag in ("map", "stripe"):
+                rec["dg"] = dg
             del out, ft, last, tend, out_p, ft_p, gout, dfin, dg_p, diff
 
         # segment reduce at N = capacity on kernel B's bf16 rows written
-        # back in expansion order (the mapping backward's input)
+        # back in expansion order: every tile's rows (the exact mapping
+        # backward's input), then a stripe's rows only (the fast mode's)
         M = rcfg.max_isect(capacity)
-        d_exp = torch.zeros((M + 1, 10), dtype=torch.bfloat16, device=dev)
-        d_exp[b_map.slot_exp_pos.reshape(-1)] = dg_map.reshape(-1, 10)
+        b_map = ctx["bins"][rcfg.max_per_tile]
         offs = b_map.exp_offsets
-        seg = segment_reduce_rows_cuda(d_exp, offs)
-        seg_p = segment_reduce_rows_plain(d_exp, offs)
-        seg_err = float((seg - seg_p).abs().max())
-        # f32 sums in another order: within a few f32 roundings of each
-        # segment's absolute sum
-        abs_sum = segment_reduce_rows_plain(d_exp.float().abs(), offs)
-        seg_ok = bool(torch.all((seg - seg_p).abs() <= 1e-6 * abs_sum
-                                + 1e-7))
-        print(f"segreduce N {offs.shape[0] - 1} rows {int(offs[-1])} "
-              f"max_abs_err {seg_err:.3e} (tol 1e-6 of each segment's "
-              f"absolute sum)")
-        if not seg_ok:
-            raise AssertionError("segreduce disagrees")
         E = int(offs[-1])
         lengths = (offs[1:] - offs[:-1]).long()
-        ms_c = cuda_ms(lambda: segment_reduce_rows_cuda(d_exp, offs), 20)
-        pms_c = cuda_ms(lambda: segment_reduce_rows_plain(d_exp, offs), 5)
-        lib_in = d_exp[:E]
-        try:
-            torch.segment_reduce(lib_in, "sum", lengths=lengths, axis=0)
-            lib_note = "bf16 input"
-        except RuntimeError:
-            lib_in = lib_in.float()
-            lib_note = "f32 copy of the input (bf16 not supported)"
-        lib_c = cuda_ms(lambda: torch.segment_reduce(
-            lib_in, "sum", lengths=lengths, axis=0), 20)
         n_seg = offs.shape[0] - 1
-        bms, by = bound(E * 10 * 2 + (n_seg + 1) * 4 + 10 * n_seg * 4,
-                        E * 10)
-        results["segreduce"] = dict(
-            kernel="segreduce", max_abs_err=seg_err, ms=ms_c,
-            plain_ms=pms_c, bound_ms=bms, bound_by=by, library_ms=lib_c)
-        print(f"segreduce {ms_c:.4f} ms (plain {pms_c:.2f} ms, "
-              f"torch.segment_reduce {lib_c:.4f} ms on {lib_note}, bound "
-              f"{bms:.4f} ms by {by})")
-    del inputs, g, b, dg, d_exp, dg_map, b_map, seg, seg_p, abs_sum, lib_in
+        for key, pos, dg_rows in (
+                ("segreduce", b_map.slot_exp_pos, inputs["map"]["dg"]),
+                ("segreduce[stripe rows]",
+                 b_map.slot_exp_pos[ctx["stripe_sel"]],
+                 inputs["stripe"]["dg"])):
+            d_exp = torch.zeros((M + 1, 10), dtype=torch.bfloat16,
+                                device=dev)
+            d_exp[pos.reshape(-1)] = dg_rows[:, :pos.shape[1]].reshape(-1,
+                                                                       10)
+            seg = segment_reduce_rows_cuda(d_exp, offs)
+            seg_p = segment_reduce_rows_plain(d_exp, offs)
+            seg_err = float((seg - seg_p).abs().max())
+            # f32 sums in another order: within a few f32 roundings of each
+            # segment's absolute sum
+            abs_sum = segment_reduce_rows_plain(d_exp.float().abs(), offs)
+            seg_ok = bool(torch.all((seg - seg_p).abs() <= 1e-6 * abs_sum
+                                    + 1e-7))
+            print(f"{key} N {n_seg} rows {E} ("
+                  f"{int((d_exp[:E] != 0).any(1).sum())} non-zero) "
+                  f"max_abs_err {seg_err:.3e} (tol 1e-6 of each segment's "
+                  f"absolute sum)")
+            if not seg_ok:
+                raise AssertionError(f"{key} disagrees")
+            ms_c = cuda_ms(lambda: segment_reduce_rows_cuda(d_exp, offs), 20)
+            pms_c = cuda_ms(lambda: segment_reduce_rows_plain(d_exp, offs),
+                            5)
+            lib_in = d_exp[:E]
+            try:
+                torch.segment_reduce(lib_in, "sum", lengths=lengths, axis=0)
+                lib_note = "bf16 input"
+            except RuntimeError:
+                lib_in = lib_in.float()
+                lib_note = "f32 copy of the input (bf16 not supported)"
+            lib_c = cuda_ms(lambda: torch.segment_reduce(
+                lib_in, "sum", lengths=lengths, axis=0), 20)
+            bms, by = bound(E * 10 * 2 + (n_seg + 1) * 4 + 10 * n_seg * 4,
+                            E * 10)
+            results[key] = dict(
+                kernel="segreduce", max_abs_err=seg_err, ms=ms_c,
+                plain_ms=pms_c, bound_ms=bms, bound_by=by, library_ms=lib_c)
+            print(f"{key} {ms_c:.4f} ms (plain {pms_c:.2f} ms, "
+                  f"torch.segment_reduce {lib_c:.4f} ms on {lib_note}, "
+                  f"bound {bms:.4f} ms by {by})")
+    flips = {t: r["flipped"] for t, r in inputs.items()}
+    print(f"pixels over tolerance per input (threshold flips): {flips}")
+    del g, b, dg, d_exp, seg, seg_p, abs_sum, lib_in, rec, dg_rows, pos
+    torch.cuda.synchronize()
+    phase("kernels vs plain", t0)
+
+    # 3b, 3c: the two subset routes, and the output-preserving binnings
+    subset_routes(inputs, ctx, cam, capacity, rcfg, dev)
+    cull_phase(ctx, cam, rcfg, dev)
+    t0 = time.perf_counter()
+    del inputs, ctx, b_map
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    phase("kernels vs plain", t0)
 
     # 4. the per-frame step driven by hand, launch counters from 0
     t0 = time.perf_counter()
@@ -561,6 +821,34 @@ def main() -> int:
               f"{terr * 100:.4f} cm / {float(ang) * 180 / np.pi:.5f} deg, "
               f"tracking loss {float(last_track[0]):.4f} "
               f"(mask {float(last_track[6]):.3f})")
+    # one more tracking frame for each tracking refinement, from the same
+    # ground-truth pose: a finite pose no farther from the ground truth
+    # than the plain tracker's plus one Adam step
+    step_t, step_q = tcfg.lr_trans * 3 ** 0.5, tcfg.lr_quat * 2.0
+    qerr_plain = float((qn - q_gt / q_gt.norm()).norm())
+    for name, kw in (("gn_iters=3", dict(gn_iters=3)),
+                     ("fan_rounds=2", dict(fan_rounds=2)),
+                     ("polyak_rho=0.8", dict(polyak_rho=0.8)),
+                     ("early_stop_patience=3", dict(early_stop_patience=3)),
+                     ("rebin_every_iter", dict(rebin_every_iter=True))):
+        tf = time.perf_counter()
+        r = track_frame(state.params, state.alive, q_gt, t_gt, im, d, cam,
+                        rcfg_track, lcfg_track, tcfg._replace(**kw))
+        torch.cuda.synchronize()
+        t_r = time.perf_counter() - tf
+        rq = r.quat / r.quat.norm()
+        e_t = float((r.trans - t_gt).norm())
+        e_q = float((rq - q_gt / q_gt.norm()).norm())
+        print(f"refinement {name}: {t_r:.3f} s, {r.iters_run} iterations, "
+              f"pose error {e_t * 100:.4f} cm / quaternion {e_q:.2e} (plain "
+              f"{terr * 100:.4f} cm / {qerr_plain:.2e}), GN verdict "
+              f"{int(r.gn_accepted)}")
+        if not (bool(torch.isfinite(r.quat).all())
+                and bool(torch.isfinite(r.trans).all())
+                and e_t <= terr + step_t and e_q <= qerr_plain + step_q):
+            raise AssertionError(f"tracking with {name} left the pose "
+                                 f"farther than one Adam step beyond the "
+                                 f"plain tracker's")
     tm = time.perf_counter()
     state = add_new_gaussians(state, im, d, res.quat, res.trans,
                               float(N_FRAMES), cam, rcfg, sil_thres=0.5,
@@ -590,13 +878,33 @@ def main() -> int:
     del state, kf, frames, ds, res, mlog
     torch.cuda.empty_cache()
 
-    # 5. the pipeline path: the port's CLI at full width, counters from 0
-    launches_cli = pipeline_path(root, END_AT)
+    # 5. the pipeline paths: the port's CLI at full width, counters from 0
+    launches_cli, tr_exact, mp_exact = pipeline_path(root, "full_res.py",
+                                                     END_AT_EXACT)
+    torch.cuda.empty_cache()
+    launches_fast, tr_fast, mp_fast = pipeline_path(
+        root, "full_res_fastlegal.py", END_AT_FAST)
+    nt, nm = len(tr_exact), len(mp_exact)
+    print(f"fast against exact, same call, over the frames both ran (1-"
+          f"{nt}; mapping phases 1-{nm}): tracking "
+          f"{np.mean(tr_fast[:nt]):.4f} s/frame against "
+          f"{np.mean(tr_exact):.4f}; mapping {np.mean(mp_fast[:nm]):.4f} "
+          f"s/phase against {np.mean(mp_exact):.4f}; the fast run's whole "
+          f"{len(tr_fast)} frames: {np.mean(tr_fast):.4f} s/frame, "
+          f"{np.mean(mp_fast):.4f} s/phase")
+    sub_shapes = [k for k, n in launches_fast.items()
+                  if n > 0 and any(f"[T={t}," in k for t in (806, 209, 975))]
+    if not (any("fwd[T=806," in k for k in sub_shapes)
+            and any("bwd[T=209," in k for k in sub_shapes)
+            and any("bwd[T=975," in k for k in sub_shapes)):
+        raise AssertionError(f"the fast path launched no virtual-row shape: "
+                             f"{launches_fast}")
 
-    # 6. kernels line: launches of both paths, each read after its run
+    # 6. kernels line: launches of the paths, each read after its run
+    paths = (("hand-driven", launches_hand), ("pipeline", launches_cli),
+             ("fast pipeline", launches_fast))
     kernels = []
-    for path_name, launches in (("hand-driven", launches_hand),
-                                ("pipeline", launches_cli)):
+    for path_name, launches in paths:
         for kname in SOURCES:
             if not any(k.startswith(kname) and n > 0
                        for k, n in launches.items()):
@@ -608,18 +916,27 @@ def main() -> int:
                                  f"but not held against the plain version: "
                                  f"{unchecked}")
     for key, r in results.items():
-        n = launches_hand.get(key, 0) + launches_cli.get(key, 0)
+        n = sum(launches.get(key, 0) for _, launches in paths)
         if n <= 0:
             print(f"[kernels] {key}: held against its plain version "
                   f"({r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms) but "
-                  f"launched on neither path in this run")
+                  f"launched on no path in this run (the launch counter "
+                  f"does not tell a stripe's rows from all rows)"
+                  if "stripe rows" in key else
+                  f"[kernels] {key}: held against its plain version "
+                  f"({r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms) but "
+                  f"launched on no path in this run")
             continue
         kernels.append({
             "name": key, "route": "cuda", "source": SOURCES[r["kernel"]],
             "replaces": REPLACES[r["kernel"]], "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # the forward's pixels over tolerance against the plain version
+            # (threshold flips) on this shape's input; null for segreduce
+            "flipped_pixels": r.get("flipped_pixels"),
+            "tiles_x": r.get("tiles_x")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     phase("total", t_start)

@@ -16,7 +16,12 @@ reduce of ops/segreduce.py:
     kernel A, with backward kernel B -> duplicate-free scatter into
     expansion order -> kernel C -> d_table;
   * tracking gathers a frozen per-slot raw table once per frame and
-    re-projects it per slot each iteration (pose is the only leaf).
+    re-projects it per slot each iteration (pose is the only leaf);
+  * opt-in, output-preserving: `tile_cull` drops the slots of a binning
+    that reach alpha >= 1/255 in no pixel of their tile, `tight_rect` bins
+    by the contribution ellipse's own extents instead of the 3-sigma square;
+  * opt-in, fast modes: a subset of tiles is composited on a virtual
+    single-row grid (tiles_x = T_sub) by the same kernels.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import torch
 
 from ..core.camera import TILE, Camera
 from ..utils.transforms import normalize, quat_mult
-from .composite import composite_backward, composite_forward, composite_tiles
+from .composite import (ALPHA_MIN, composite_backward, composite_forward,
+                        composite_tiles)
 from .segreduce import segment_reduce_rows
 
 NEAR_CULL_Z = 0.2
@@ -42,8 +48,21 @@ class RasterConfig(NamedTuple):
     # the mapping backward's per-slot gradients are emitted by kernel B and
     # scattered in bfloat16 (kernel C accumulates in f32)
     grad_scatter_bf16: bool = True
-    # not ported yet (opt-in in the reference): raise NotImplementedError
+    # backward aggregation of the mapping render's per-slot gradients:
+    # "segreduce" = duplicate-free scatter into expansion order + kernel C
+    # (needs a binning made with emit_exp), "scatter" = index_add_ of the
+    # live columns; "auto" = segreduce, and for a tile subset whichever
+    # subset_uses_segreduce picks
+    bwd_mode: str = "auto"
+    # drop tile slots whose exact minimum of the conic form over the tile
+    # box proves alpha < 1/255 at every pixel (cull_tile_slots); output-
+    # preserving, needs the opacities and drift budgets at bin_gaussians
     tile_cull: bool = False
+    # the bin-time minimum is divided by this before the cut: budget for
+    # conic drift while a frozen binning is reused
+    cull_q_slack: float = 1.5
+    # bin by the per-axis extents of the contribution ellipse q <= qmax,
+    # qmax = 2 ln(op_bound * 255), intersected with the 3-sigma radius rect
     tight_rect: bool = False
     max_isect_cap: int = 0    # static intersection capacity override
 
@@ -52,12 +71,10 @@ class RasterConfig(NamedTuple):
              else int(num_gaussians * self.isect_per_gaussian))
         return max(1024, (m + 1023) // 1024 * 1024)
 
-    def check_ported(self):
-        for knob in ("tile_cull", "tight_rect"):
-            if getattr(self, knob):
-                raise NotImplementedError(
-                    f"RasterConfig.{knob} is not ported to the PyTorch "
-                    f"package yet")
+    def resolve_bwd_mode(self) -> str:
+        if self.bwd_mode not in ("auto", "segreduce", "scatter"):
+            raise ValueError(f"RasterConfig.bwd_mode={self.bwd_mode!r}")
+        return "segreduce" if self.bwd_mode == "auto" else self.bwd_mode
 
 
 class Projected(NamedTuple):
@@ -184,37 +201,169 @@ class Binning(NamedTuple):
     exp_offsets: torch.Tensor | None = None
 
 
+def _min_q_box(u, v, A, B, C, x0, x1, y0, y1):
+    """Exact minimum of q(dx, dy) = A dx^2 + 2 B dx dy + C dy^2 (power =
+    -q/2 in the compositor) over the pixel box [x0, x1] x [y0, y1] around
+    the centre (u, v). q is positive definite (the low-pass guarantees
+    det > 0): 0 when the centre lies in the box, else attained on an edge,
+    where q is a 1-D quadratic minimised in closed form and clamped."""
+    lx, hx = x0 - u, x1 - u
+    ly, hy = y0 - v, y1 - v
+    inside = (lx <= 0) & (hx >= 0) & (ly <= 0) & (hy >= 0)
+    As = torch.clamp(A, min=1e-12)
+    Cs = torch.clamp(C, min=1e-12)
+
+    def q(dx, dy):
+        return A * dx * dx + 2.0 * B * dx * dy + C * dy * dy
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    m = torch.minimum(
+        torch.minimum(q(lx, clip(-B * lx / Cs, ly, hy)),
+                      q(hx, clip(-B * hx / Cs, ly, hy))),
+        torch.minimum(q(clip(-B * ly / As, lx, hx), ly),
+                      q(clip(-B * hy / As, lx, hx), hy)))
+    return torch.where(inside, torch.zeros_like(m), torch.clamp(m, min=0.0))
+
+
+def _op_bound(opacity, logit_drift: float):
+    """Upper bound of the opacity while a binning is reused: sigmoid(l + d)
+    <= sigmoid(l) e^d, capped at 1. The compositor tests contribution on
+    the clamped alpha, min(0.99, op e^-q/2) >= 1/255, which is the same as
+    the test on the unclamped one, so the bound is not clamped at 0.99."""
+    return torch.clamp(opacity * float(np.exp(logit_drift)), max=1.0)
+
+
+def _q_cut(op_bound):
+    """q above which op e^(-q/2) < 1/255."""
+    return 2.0 * (torch.log(torch.clamp(op_bound, min=1e-12))
+                  - float(np.log(ALPHA_MIN)))
+
+
+@torch.no_grad()
+def cull_tile_slots(binning: Binning, proj: Projected, opacity,
+                    cam: Camera, cfg: RasterConfig, m_sentinel: int,
+                    slack_px=0.0, logit_drift: float = 0.0) -> Binning:
+    """Drop tile slots that provably contribute to no pixel of their tile
+    and compact the survivors to the front (depth order kept). A slot
+    contributes iff min over the tile box of q <= 2 ln(op * 255).
+    Conservative under the rect margins' drift contract: `slack_px`
+    inflates the box, `logit_drift` bounds opacity growth, and
+    cfg.cull_q_slack divides the minimum for conic drift. K stays; only
+    tile_count shrinks, and slot_exp_pos follows the same permutation with
+    the slots past the new count sent to the sentinel."""
+    T, K = binning.tile_gauss.shape
+    dev = proj.u.device
+    geom = torch.stack([proj.u, proj.v, proj.conic[:, 0], proj.conic[:, 1],
+                        proj.conic[:, 2], opacity], dim=-1).detach()
+    g = geom[binning.tile_gauss]                             # [T, K, 6]
+    tids = torch.arange(T, device=dev)
+    tx0 = ((tids % cam.tiles_x) * TILE).to(torch.float32)[:, None]
+    ty0 = ((tids // cam.tiles_x) * TILE).to(torch.float32)[:, None]
+    # pixel centres span [tx0, tx0 + TILE - 1]
+    minq = _min_q_box(g[..., 0], g[..., 1], g[..., 2], g[..., 3], g[..., 4],
+                      tx0 - slack_px, tx0 + (TILE - 1) + slack_px,
+                      ty0 - slack_px, ty0 + (TILE - 1) + slack_px)
+    q_cut = _q_cut(_op_bound(g[..., 5], logit_drift))
+    k_idx = torch.arange(K, device=dev)[None, :]
+    keep = ((k_idx < binning.tile_count[:, None])
+            & (minq / cfg.cull_q_slack <= q_cut))
+    # stable partition: keepers first, in their (depth) order
+    perm = torch.sort(torch.where(keep, k_idx, K + k_idx), dim=1,
+                      stable=True).indices
+    new_count = keep.sum(dim=1).to(torch.int32)
+    sep = binning.slot_exp_pos
+    if sep is not None:
+        sep = torch.gather(sep, 1, perm)
+        sep = torch.where(k_idx < new_count[:, None], sep,
+                          torch.full_like(sep, m_sentinel))
+    return binning._replace(
+        tile_gauss=torch.gather(binning.tile_gauss, 1, perm),
+        tile_count=new_count, slot_exp_pos=sep)
+
+
+def _tight_rects(proj: Projected, cam: Camera, cfg: RasterConfig, opacity,
+                 cull_slack_px, cull_logit_drift: float):
+    """(rect_min, rect_max, rect_min_true, rect_max_true, valid) with the
+    radius rects intersected with the tile AABB of the contribution
+    ellipse q <= qmax (half-extents sqrt(qmax * cov_xx), cov = conic^-1).
+    The exclusive max is floor((u + rx) / TILE) + 1: the last covered
+    pixel floor(u + rx) lives in that tile. getRect's
+    floor((x + TILE - 1) / TILE) under-counts a tile for fractional
+    extents."""
+    cA, cB, cC = proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2]
+    detc = torch.clamp(cA * cC - cB * cB, min=1e-24)
+    op_bound = _op_bound(opacity, cull_logit_drift)
+    qmax = torch.clamp(_q_cut(op_bound) * cfg.cull_q_slack, min=0.0)
+    radius_f = proj.radius.to(torch.float32)
+    # + 0.01 px absorbs rounding in the covariance recovery
+    ex = torch.minimum(torch.sqrt(qmax * cC / detc) + 0.01, radius_f)
+    ey = torch.minimum(torch.sqrt(qmax * cA / detc) + 0.01, radius_f)
+    gx, gy = cam.tiles_x, cam.tiles_y
+    u, v = proj.u.detach(), proj.v.detach()
+
+    def erect(rx, ry):
+        def cl(x, hi):
+            return torch.clamp(torch.floor(x), 0, hi).to(torch.int64)
+        return (torch.stack([cl((u - rx) / TILE, gx),
+                             cl((v - ry) / TILE, gy)], dim=-1),
+                torch.stack([cl(torch.floor((u + rx) / TILE) + 1, gx),
+                             cl(torch.floor((v + ry) / TILE) + 1, gy)],
+                            dim=-1))
+
+    em0, em1 = erect(ex + cull_slack_px, ey + cull_slack_px)
+    et0, et1 = erect(ex, ey)
+    return (torch.maximum(proj.rect_min, em0),
+            torch.minimum(proj.rect_max, em1),
+            torch.maximum(proj.rect_min_true, et0),
+            torch.minimum(proj.rect_max_true, et1),
+            proj.valid & (op_bound >= ALPHA_MIN))
+
+
 def bin_gaussians(proj: Projected, cam: Camera, cfg: RasterConfig,
-                  emit_exp: bool = False) -> Binning:
+                  emit_exp: bool = False, opacity=None, cull_slack_px=0.0,
+                  cull_logit_drift: float = 0.0) -> Binning:
     """Depth-ordered per-tile Gaussian lists with a K cap per tile and an M
     cap on the expansion (cfg.max_isect(N)); what the caps drop is counted
     in n_overflow. Margin-only candidates (in the widened rect but not the
-    true footprint) rank after every true candidate of their tile."""
-    cfg.check_ported()
+    true footprint) rank after every true candidate of their tile.
+    `opacity` [N] with the drift budgets `cull_slack_px` (pixels the
+    centres may move) and `cull_logit_drift` (growth of the opacity logit)
+    while the binning is reused lets cfg.tight_rect and cfg.tile_cull
+    act; without it both are skipped."""
+    return bin_gaussians_batched([proj], cam, cfg, emit_exp, opacity,
+                                 cull_slack_px, cull_logit_drift)[0]
+
+
+def _expand(proj: Projected, cam: Camera, cfg: RasterConfig, db: int,
+            opacity, cull_slack_px, cull_logit_drift):
+    """One projection's gaussian-major expansion, truncated to the M
+    capacity: (src [E] gaussian of each entry, key [E] = tile << db |
+    margin bit | quantized log depth, offs [N] exclusive prefix of the
+    per-Gaussian tile counts, total)."""
     dev = proj.u.device
     N = proj.u.shape[0]
-    T = cam.num_tiles
-    K = cfg.max_per_tile
-    M = cfg.max_isect(N)
-    db = 32 - max(int(T + 1).bit_length(), 1)
-    db = max(min(db, 24), 8)
     dqb = db - 1
-
     rmin, rmax = proj.rect_min, proj.rect_max
+    rmin_true, rmax_true, valid = (proj.rect_min_true, proj.rect_max_true,
+                                   proj.valid)
+    if cfg.tight_rect and opacity is not None:
+        rmin, rmax, rmin_true, rmax_true, valid = _tight_rects(
+            proj, cam, cfg, opacity.detach(), cull_slack_px,
+            cull_logit_drift)
     span_x = torch.clamp(rmax[:, 0] - rmin[:, 0], min=0)
     span_y = torch.clamp(rmax[:, 1] - rmin[:, 1], min=0)
-    counts = torch.where(proj.valid, span_x * span_y,
-                         torch.zeros_like(span_x))
+    counts = torch.where(valid, span_x * span_y, torch.zeros_like(span_x))
     offs = torch.cumsum(counts, 0) - counts            # exclusive prefix
     total = int(counts.sum())                          # one host sync
-    E = min(total, M)                                  # entries kept
+    E = min(total, cfg.max_isect(N))                   # entries kept
 
     depth = proj.depth.detach()
     zn, zf = NEAR_CULL_Z, 1000.0
     tq = torch.log(torch.clamp(depth, zn, zf) / zn) / float(np.log(zf / zn))
     qz = (tq * ((1 << dqb) - 1)).to(torch.int64)
 
-    # gaussian-major expansion, truncated to the M capacity
     src = torch.repeat_interleave(torch.arange(N, device=dev), counts,
                                   output_size=total)[:E]
     pos = torch.arange(E, device=dev)
@@ -223,43 +372,86 @@ def bin_gaussians(proj: Projected, cam: Camera, cfg: RasterConfig,
     tile_x = rmin[src, 0] + local % sx
     tile_y = rmin[src, 1] + local // sx
     tile_id = tile_y * cam.tiles_x + tile_x
-    tmin, tmax = proj.rect_min_true[src], proj.rect_max_true[src]
+    tmin, tmax = rmin_true[src], rmax_true[src]
     in_true = ((tile_x >= tmin[:, 0]) & (tile_y >= tmin[:, 1])
                & (tile_x < tmax[:, 0]) & (tile_y < tmax[:, 1]))
     margin_bit = torch.where(in_true, 0, 1 << dqb)
-    key = (tile_id << db) | margin_bit | qz[src]
+    return src, (tile_id << db) | margin_bit | qz[src], offs, total
+
+
+@torch.no_grad()
+def bin_gaussians_batched(projs, cam: Camera, cfg: RasterConfig,
+                          emit_exp: bool = False, opacity=None,
+                          cull_slack_px=0.0, cull_logit_drift: float = 0.0
+                          ) -> list:
+    """bin_gaussians of S projections of one map (S camera poses) with one
+    sort: the batch index sits above the tile id in the int64 key, so the
+    stable sort leaves each projection's entries as its own sort would.
+    Returns S Binnings equal to the serial ones (slots at or past a tile's
+    count, which every consumer masks, may hold other indices)."""
+    dev = projs[0].u.device
+    N = projs[0].u.shape[0]
+    S = len(projs)
+    T = cam.num_tiles
+    K = cfg.max_per_tile
+    M = cfg.max_isect(N)
+    db = 32 - max(int(T + 1).bit_length(), 1)
+    db = max(min(db, 24), 8)
+    dqb = db - 1
+
+    parts = [_expand(p, cam, cfg, db, opacity, cull_slack_px,
+                     cull_logit_drift) for p in projs]
+    sizes = [p[0].shape[0] for p in parts]
+    base = np.concatenate([[0], np.cumsum(sizes)])
+    src = torch.cat([p[0] for p in parts])
+    key = torch.cat([p[1] + ((b * T) << db) for b, p in enumerate(parts)])
     sorted_key, perm = torch.sort(key, stable=True)
     sorted_gauss = src[perm]
 
-    tids = torch.arange(T, device=dev, dtype=torch.int64)
+    tids = torch.arange(S * T, device=dev, dtype=torch.int64)
     starts = torch.searchsorted(sorted_key, tids << db)
     ends = torch.searchsorted(sorted_key, (tids + 1) << db)
     ends_true = torch.searchsorted(sorted_key, (tids << db) | (1 << dqb))
     full_count = ends - starts
     tile_count = torch.clamp(full_count, max=K)
-    n_overflow = (max(total - M, 0)
-                  + torch.sum(full_count - tile_count))
-    n_true_overflow = torch.sum(torch.clamp(ends_true - starts - K, min=0))
+    dropped = (full_count - tile_count).reshape(S, T).sum(1)
+    true_dropped = torch.clamp(ends_true - starts - K,
+                               min=0).reshape(S, T).sum(1)
 
     # each tile's K slots are the consecutive sorted rows [start, start+K);
-    # K pad rows (gauss 0, position M) absorb windows running off the end
-    # and only ever sit at slots k >= count
+    # K pad rows (gauss 0) absorb windows running off the end and only
+    # ever sit at slots k >= count
     rows = starts[:, None] + torch.arange(K, device=dev)[None, :]
     k_in = torch.arange(K, device=dev)[None, :] < tile_count[:, None]
-    pad_g = torch.zeros(K, dtype=torch.int64, device=dev)
-    tile_gauss = torch.cat([sorted_gauss, pad_g])[rows]
-    slot_exp_pos = exp_offsets = None
+    pad = torch.zeros(K, dtype=torch.int64, device=dev)
+    tile_gauss = torch.cat([sorted_gauss, pad])[rows].reshape(S, T, K)
     if emit_exp:
-        pad_p = torch.full((K,), M, dtype=torch.int64, device=dev)
-        slot_exp_pos = torch.where(k_in, torch.cat([perm, pad_p])[rows], M)
-        exp_offsets = torch.clamp(
-            torch.cat([offs, offs.new_tensor([total])]), max=M
-        ).to(torch.int32)
-    return Binning(tile_gauss=tile_gauss,
-                   tile_count=tile_count.to(torch.int32),
-                   n_isect=torch.tensor(total, device=dev),
-                   n_overflow=n_overflow, n_true_overflow=n_true_overflow,
-                   slot_exp_pos=slot_exp_pos, exp_offsets=exp_offsets)
+        # a slot's position in its own projection's expansion; slots past
+        # the count go to the sentinel M, which the backward drops
+        slot_pos = torch.cat([perm, pad])[rows].reshape(S, T, K)
+        k_in = k_in.reshape(S, T, K)
+    tile_count = tile_count.to(torch.int32).reshape(S, T)
+    out = []
+    for b, (_, _, offs, total) in enumerate(parts):
+        slot_exp_pos = exp_offsets = None
+        if emit_exp:
+            slot_exp_pos = torch.where(k_in[b], slot_pos[b] - int(base[b]),
+                                       M)
+            exp_offsets = torch.clamp(
+                torch.cat([offs, offs.new_tensor([total])]), max=M
+            ).to(torch.int32)
+        binning = Binning(
+            tile_gauss=tile_gauss[b], tile_count=tile_count[b],
+            n_isect=torch.tensor(total, device=dev),
+            n_overflow=max(total - M, 0) + dropped[b],
+            n_true_overflow=true_dropped[b], slot_exp_pos=slot_exp_pos,
+            exp_offsets=exp_offsets)
+        if cfg.tile_cull and opacity is not None:
+            binning = cull_tile_slots(binning, projs[b], opacity.detach(),
+                                      cam, cfg, M, slack_px=cull_slack_px,
+                                      logit_drift=cull_logit_drift)
+        out.append(binning)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -301,36 +493,114 @@ class _CompositeTableFused(torch.autograd.Function):
         dg = composite_backward(gdata, counts, gout, dfinal, saved or None,
                                 F, tiles_x, sq_col, acc, chunk)
         K = slot_exp_pos.shape[1]
-        C = gdata.shape[2]
-        cols = list(live_cols) if live_cols is not None else list(range(C))
-        dsub = dg[:, :K, cols].reshape(-1, len(cols))
-        # real slots map to distinct expansion positions; padding slots
-        # all carry the sentinel m_cap, whose row is dropped
-        d_exp = torch.zeros((m_cap + 1, len(cols)), dtype=acc,
-                            device=dg.device)
-        d_exp[slot_exp_pos.reshape(-1)] = dsub
-        planar = segment_reduce_rows(d_exp, exp_offsets)     # [L, n] f32
-        dtab = torch.zeros((n, C), dtype=torch.float32, device=dg.device)
-        dtab[:, cols] = planar.T
+        dtab = _expansion_reduce(dg[:, :K], slot_exp_pos, exp_offsets, m_cap,
+                                 n, live_cols)
         return (dtab, None, None, None, None, None, None, None, None, None,
                 None, None)
+
+
+def _expansion_reduce(dg, slot_exp_pos, exp_offsets, m_cap: int, n: int,
+                      live_cols):
+    """Per-slot gradient rows dg [T, K, C] (f32 or bf16) -> d table [n, C]
+    f32: a duplicate-free scatter of the live columns into gaussian-major
+    expansion order, then kernel C over each Gaussian's contiguous
+    segment. Real slots map to distinct expansion positions; padding slots
+    all carry the sentinel m_cap, whose row is dropped. Rows no slot
+    covers (K cap, a tile subset) stay zero."""
+    C = dg.shape[2]
+    cols = list(live_cols) if live_cols is not None else list(range(C))
+    dsub = dg[..., cols].reshape(-1, len(cols))
+    d_exp = torch.zeros((m_cap + 1, len(cols)), dtype=dg.dtype,
+                        device=dg.device)
+    d_exp[slot_exp_pos.reshape(-1)] = dsub
+    planar = segment_reduce_rows(d_exp, exp_offsets)     # [L, n] f32
+    dtab = torch.zeros((n, C), dtype=torch.float32, device=dg.device)
+    dtab[:, cols] = planar.T
+    return dtab
+
+
+class _GatherRowsSegreduce(torch.autograd.Function):
+    """table[idx]; backward = _expansion_reduce of the cotangent rows
+    (cast to bf16 first when scatter_bf16)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, slot_exp_pos, exp_offsets, m_cap,
+                live_cols, scatter_bf16):
+        ctx.save_for_backward(slot_exp_pos, exp_offsets)
+        ctx.args = (table.shape[0], m_cap, live_cols, scatter_bf16)
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, dg):
+        slot_exp_pos, exp_offsets = ctx.saved_tensors
+        n, m_cap, live_cols, scatter_bf16 = ctx.args
+        if scatter_bf16:
+            dg = dg.to(torch.bfloat16)
+        return (_expansion_reduce(dg, slot_exp_pos, exp_offsets, m_cap, n,
+                                  live_cols),
+                None, None, None, None, None, None)
+
+
+def _index_add_rows(dg, idx, n: int, live_cols, scatter_bf16: bool):
+    """Per-slot gradient rows dg [T, K, C] -> d table [n, C] in dg's dtype
+    by index_add_ of the live columns (accumulated in bf16 when
+    scatter_bf16); the dead columns, which feed detached chains, stay
+    zero."""
+    cols = list(live_cols)
+    acc = torch.bfloat16 if scatter_bf16 else dg.dtype
+    dsub = dg[..., cols].reshape(-1, len(cols)).to(acc)
+    sub = torch.zeros((n, len(cols)), dtype=acc, device=dg.device)
+    sub.index_add_(0, idx.reshape(-1), dsub)
+    dtab = torch.zeros((n, dg.shape[-1]), dtype=dg.dtype, device=dg.device)
+    dtab[:, cols] = sub.to(dg.dtype)
+    return dtab
+
+
+class _GatherRowsPartialGrad(torch.autograd.Function):
+    """table[idx]; backward = _index_add_rows of the cotangent rows."""
+
+    @staticmethod
+    def forward(ctx, table, idx, live_cols, scatter_bf16):
+        ctx.save_for_backward(idx)
+        ctx.args = (table.shape[0], live_cols, scatter_bf16)
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, dg):
+        (idx,) = ctx.saved_tensors
+        n, live_cols, scatter_bf16 = ctx.args
+        return (_index_add_rows(dg, idx, n, live_cols, scatter_bf16), None,
+                None, None)
+
+
+def _raster_table(proj: Projected, opacity, features):
+    """[N, 6+F] rows (u, v, A, B, C, op, features)."""
+    return torch.stack([proj.u, proj.v, proj.conic[:, 0], proj.conic[:, 1],
+                        proj.conic[:, 2], opacity]
+                       + list(features.unbind(-1)), dim=1)
 
 
 def composite(proj: Projected, opacity, features, binning: Binning,
               cam: Camera, cfg: RasterConfig, live_grad_cols=None,
               sq_col=None):
-    """Rasterize all tiles -> ([T, P, F(+1)], [T, P]). Needs a binning
-    made with emit_exp=True (its backward is the expansion-order segment
-    reduce). live_grad_cols: table columns whose gradients survive
-    downstream; the backward scatters only those."""
+    """Rasterize all tiles -> ([T, P, F(+1)], [T, P]). With
+    cfg.bwd_mode "segreduce" (and "auto") it needs a binning made with
+    emit_exp=True: its backward is the expansion-order segment reduce.
+    "scatter" gathers the rows and adds their gradients back by index.
+    live_grad_cols: table columns whose gradients survive downstream; the
+    backward scatters only those."""
+    F = features.shape[-1]
+    table = _raster_table(proj, opacity, features)            # [N, 6+F]
+    live = tuple(live_grad_cols) if live_grad_cols is not None else None
+    if cfg.resolve_bwd_mode() == "scatter":
+        gdata = (table[binning.tile_gauss] if live is None else
+                 _GatherRowsPartialGrad.apply(table, binning.tile_gauss, live,
+                                              cfg.grad_scatter_bf16))
+        return composite_gdata(gdata, binning.tile_count, cam, cfg, F,
+                               sq_col=sq_col)
     if binning.slot_exp_pos is None:
         raise ValueError("composite needs a binning made with "
                          "emit_exp=True")
-    F = features.shape[-1]
-    table = torch.stack([proj.u, proj.v, proj.conic[:, 0], proj.conic[:, 1],
-                         proj.conic[:, 2], opacity]
-                        + list(features.unbind(-1)), dim=1)   # [N, 6+F]
-    live = tuple(live_grad_cols) if live_grad_cols is not None else None
     return _CompositeTableFused.apply(
         table, binning.tile_gauss, binning.tile_count, binning.slot_exp_pos,
         binning.exp_offsets, cfg.max_isect(table.shape[0]), F, cam.tiles_x,
@@ -362,7 +632,9 @@ def render(means_cam, quats_cam, log_scales, logit_opacities, features,
     opacity = torch.sigmoid(logit_opacities[:, 0])
     proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam)
     if binning is None:
-        binning = bin_gaussians(proj, cam, cfg, emit_exp=True)
+        # an inline binning serves one composite, so it is not culled
+        binning = bin_gaussians(
+            proj, cam, cfg, emit_exp=cfg.resolve_bwd_mode() == "segreduce")
     else:
         # frozen tile lists may reference Gaussians culled at this pose
         opacity = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
@@ -394,6 +666,129 @@ def render_rgbd_sil(means_cam, quats_cam, log_scales, logit_opacities,
     return (img[0:3], img[3:4], 1.0 - out["final_T"], img[4:5],
             {"radii": out["radii"], "final_T": out["final_T"],
              "n_isect": out["n_isect"], "n_overflow": out["n_overflow"]})
+
+
+# ---------------------------------------------------------------------------
+# tile-subset renders (the opt-in fast modes): only the tiles in `sel` are
+# composited. They are re-indexed into one virtual row of tiles
+# (tiles_x = T_sub), so kernels A and B run unchanged; every per-iteration
+# cost that scales with the intersection count shrinks with the subset.
+
+
+def _virtual_row_shift(sel, cam: Camera, width: int, dtype):
+    """[Ts, 1, width] shift of (u, v) (columns 0, 1) that moves real tile
+    sel[t] onto virtual tile t of a single-row grid, whose pixel origin is
+    (t * TILE, 0): an additive constant, transparent to gradients."""
+    t_sub = sel.shape[0]
+    ox = (sel % cam.tiles_x) * TILE
+    oy = (sel // cam.tiles_x) * TILE
+    shift = torch.zeros((t_sub, 1, width), dtype=dtype, device=sel.device)
+    shift[:, 0, 0] = (torch.arange(t_sub, device=sel.device) * TILE
+                      - ox).to(dtype)
+    shift[:, 0, 1] = (-oy).to(dtype)
+    return shift
+
+
+class _TileGrid(NamedTuple):
+    """Stand-in for Camera inside composite_gdata: the selected tiles laid
+    out as one virtual row."""
+    num_tiles: int
+    tiles_x: int
+
+
+# Rows (t_sub * max_per_tile) from which "auto" sends the subset render's
+# backward through the expansion scatter + kernel C instead of index_add_;
+# None = never. On an NVIDIA H100 80GB HBM3 (700 W; chip_smoke.py, phase
+# "subset route", each aggregation as its backward runs it) index_add_
+# took 0.24 / 0.25 / 0.45 ms at 124,416 / 499,200 / 1,651,200 rows (a
+# quarter stripe, a stripe, every tile at K = 512) against 0.49-0.53 /
+# 0.51-0.57 / 0.62-0.69 ms for the expansion route, whose cost is the
+# zero-fill, the row scatter and the re-expansion around a 0.04 ms kernel:
+# no crossover up to the whole image's row count.
+SUBSET_SEGREDUCE_MIN_ROWS = None
+
+
+def subset_uses_segreduce(cfg: RasterConfig, t_sub: int) -> bool:
+    """Which backward aggregation the subset render takes (shared by
+    render_tiles_subset and the caller's emit_exp decision): an explicit
+    bwd_mode decides; "auto" applies the row-count crossover."""
+    if cfg.bwd_mode == "segreduce":
+        return True
+    return (cfg.resolve_bwd_mode() == "segreduce"
+            and SUBSET_SEGREDUCE_MIN_ROWS is not None
+            and t_sub * cfg.max_per_tile >= SUBSET_SEGREDUCE_MIN_ROWS)
+
+
+def image_to_tiles(img, cam: Camera):
+    """[C, H, W] -> [num_tiles, TILE*TILE, C] in the compositor's pixel
+    order (p = y_local * TILE + x_local); out-of-image pixels are zero."""
+    C = img.shape[0]
+    gy, gx = cam.tiles_y, cam.tiles_x
+    x = torch.nn.functional.pad(
+        img, (0, gx * TILE - cam.width, 0, gy * TILE - cam.height))
+    x = x.reshape(C, gy, TILE, gx, TILE).permute(1, 3, 2, 4, 0)
+    return x.reshape(gy * gx, TILE * TILE, C)
+
+
+def tiles_to_image(tiles, tiles_x: int):
+    """[Ts, TILE*TILE, C] (row-major tile ids, Ts a multiple of tiles_x)
+    -> [C, (Ts / tiles_x) * TILE, tiles_x * TILE]: the inverse of
+    image_to_tiles on a contiguous band of tile rows."""
+    ts, _, c = tiles.shape
+    rows = ts // tiles_x
+    x = tiles.reshape(rows, tiles_x, TILE, TILE, c).permute(4, 0, 2, 1, 3)
+    return x.reshape(c, rows * TILE, tiles_x * TILE)
+
+
+def tile_pixel_validity(cam: Camera) -> np.ndarray:
+    """[num_tiles, TILE*TILE] bool: the pixel lies inside the H x W image
+    (tiles on the right and bottom edges are partly padding)."""
+    gy, gx = cam.tiles_y, cam.tiles_x
+    vy = np.arange(gy * TILE).reshape(gy, TILE) < cam.height
+    vx = np.arange(gx * TILE).reshape(gx, TILE) < cam.width
+    v = vy[:, None, :, None] & vx[None, :, None, :]
+    return v.reshape(gy * gx, TILE * TILE)
+
+
+def render_tiles_subset(means_cam, quats_cam, log_scales, logit_opacities,
+                        rgb_colors, alive, sel, binning: Binning,
+                        cam: Camera, cfg: RasterConfig, live_grad_cols=None):
+    """Differentiable fused rgb + z (+ z^2) render of only the tiles in
+    sel [T_sub] (tile ids). Returns (tiles_out [T_sub, P, 5] with channels
+    (r, g, b, z, z^2), final_t [T_sub, P], aux). The backward adds the
+    per-slot gradients into the table either by index (index_add_ of the
+    live columns) or, when subset_uses_segreduce says so and the binning
+    carries expansion positions, through the subset's expansion positions
+    and kernel C."""
+    opacity = torch.sigmoid(logit_opacities[:, 0])
+    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam)
+    # frozen tile lists may reference Gaussians culled at this pose
+    opacity = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
+    table = _raster_table(
+        proj, opacity, torch.cat([rgb_colors, means_cam[:, 2:3]], dim=-1))
+    idx = binning.tile_gauss[sel]                          # [T_sub, K]
+    counts = binning.tile_count[sel]
+    t_sub = sel.shape[0]
+    live = tuple(live_grad_cols) if live_grad_cols is not None else None
+    if live is None:
+        gdata = table[idx]
+    elif (subset_uses_segreduce(cfg, t_sub)
+          and binning.slot_exp_pos is not None):
+        gdata = _GatherRowsSegreduce.apply(
+            table, idx, binning.slot_exp_pos[sel], binning.exp_offsets,
+            cfg.max_isect(table.shape[0]), live, cfg.grad_scatter_bf16)
+    else:
+        gdata = _GatherRowsPartialGrad.apply(table, idx, live,
+                                             cfg.grad_scatter_bf16)
+    gdata = gdata + _virtual_row_shift(sel, cam, gdata.shape[-1],
+                                       gdata.dtype)
+    grid = _TileGrid(num_tiles=t_sub, tiles_x=t_sub)
+    # the next backward step casts the rows to bf16 anyway on either
+    # route, so kernel B emits them in bf16 directly
+    bwd_bf16 = cfg.grad_scatter_bf16 and live is not None
+    out, final_t = composite_gdata(gdata, counts, grid, cfg, 4, sq_col=3,
+                                   bwd_bf16=bwd_bf16)
+    return out, final_t, {"radii": proj.radius}
 
 
 # ---------------------------------------------------------------------------
@@ -472,3 +867,19 @@ def render_rgbd_sil_slots(raw, counts, cam_quat, cam_trans, cam: Camera,
     img = _tiles_to_image(tiles_out, cam)
     final_t = _tiles_to_image(tiles_t[..., None], cam)[0]
     return (img[0:3], img[3:4], 1.0 - final_t, img[4:5], {"final_T": final_t})
+
+
+def render_rgbd_sil_slots_subset(raw_sub, counts_sub, sel, cam_quat,
+                                 cam_trans, cam: Camera, cfg: RasterConfig):
+    """Slot-table render of only the tiles in sel [Ts] (tracking's
+    counterpart of render_tiles_subset). raw_sub [Ts, K, RAW_COLS] =
+    raw[sel], counts_sub [Ts]. Returns tile-space (out [Ts, P, 5] with
+    channels (r, g, b, z, z^2), silhouette [Ts, P]) on the same virtual
+    single-row grid."""
+    gdata = _slot_gdata(raw_sub, cam_quat, cam_trans, cam, tile_ids=sel)
+    t_sub = raw_sub.shape[0]
+    shift = _virtual_row_shift(sel, cam, gdata.shape[-1], gdata.dtype)
+    grid = _TileGrid(num_tiles=t_sub, tiles_x=t_sub)
+    out, final_t = composite_gdata(gdata + shift, counts_sub, grid, cfg, 4,
+                                   sq_col=3)
+    return out, 1.0 - final_t

@@ -2,10 +2,12 @@
 isogs_slam_tpu/slam/experimental.py).
 
 Every knob here was measured in the JAX package and lost (slower, or
-harmful to quality on sequences) under its documented conditions; the
-verdicts below are that package's records (NOTES.md there is the source).
-None of them is ported yet: after the warning, SLAM's constructor raises
-NotImplementedError for an enabled one.
+harmful to quality on sequences) under its documented conditions. The
+verdicts below are that package's records, from its own runs (NOTES.md
+there is the source): the qualities carry over as far as the algorithms
+are the same, the speed verdicts were taken on other hardware and say
+nothing about this package on a GPU. Every knob listed runs here; an
+enabled one gets its warning and then does what it says.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ def warn_experimental(config: dict) -> list[str]:
         val = config.get(section, {}).get(key)
         if val is not None and trigger(val):
             msg = (f"[experimental] {section}.{key}={val!r} is an "
-                   f"ADJUDICATED LOSER: {verdict}")
+                   f"ADJUDICATED LOSER (the JAX package's record): "
+                   f"{verdict}")
             print(msg, flush=True)
             warnings.append(msg)
     return warnings

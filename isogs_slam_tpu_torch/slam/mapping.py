@@ -1,11 +1,16 @@
-"""Keyframe mapping (counterpart of isogs_slam_tpu/slam/mapping.py, exact
-branch of `map_frame`).
+"""Keyframe mapping (counterpart of isogs_slam_tpu/slam/mapping.py).
 
 Per phase: each sampled keyframe slot is binned once (margin-free tile
 lists, expansion order kept for the backward's segment reduce), the iso
 hash grid and KNN pool are built once. Per iteration: the mapping loss
 (L1 + SSIM colour, masked depth L1, IsoGS flat + iso), pruning, the opacity
 reset and one Adam step (eps 1e-15) on every Gaussian parameter.
+
+Opt-in fast mode (tile_subsample > 1): an iteration renders the loss on one
+full-width stripe of tile rows (a core of ~tiles_y / sub rows and a halo
+row on each side), the stripes of a keyframe cycling through a permutation;
+the last exact_polish_iters iterations run on the whole image with the same
+Adam state and the same frozen tile lists.
 """
 from __future__ import annotations
 
@@ -17,10 +22,13 @@ from ..core import optim
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams, MapState, prune
 from ..ops.iso_loss import build_iso_knn_pool
-from ..ops.rasterize import RasterConfig, bin_gaussians, project_gaussians
+from ..ops.rasterize import (RasterConfig, bin_gaussians,
+                             bin_gaussians_batched, image_to_tiles,
+                             project_gaussians, subset_uses_segreduce,
+                             tile_pixel_validity)
 from ..ops.spatial_hash import build_hash_grid, default_cell_size
 from ..utils.transforms import transform_to_frame
-from .losses import LossConfig, compute_loss
+from .losses import LossConfig, compute_loss, compute_loss_subsampled
 
 N_LOG = 7  # loss, im, depth, flat, iso, mean_density, mask_frac
 
@@ -47,13 +55,29 @@ class MappingConfig(NamedTuple):
     prune: PruneConfig
     eps: float = 1e-15
     bin_margin_px: float = 0.0
-    # the reference's opt-in knobs below are not ported yet; a config that
-    # sets one raises NotImplementedError
+    # Inria clone/split densification during mapping: not ported yet, a
+    # config that sets it raises NotImplementedError
     use_densification: bool = False
+    # fast mode (1 = off): the loss of an iteration is rendered on a
+    # 1/tile_subsample full-width stripe of tile rows
+    # (losses.compute_loss_subsampled)
     tile_subsample: int = 1
-    exact_polish_iters: int = 0
-    force_subset: bool = False
+    # True: a keyframe's iterations walk a permutation of the disjoint
+    # stripes, a new one per cycle (every tile rendered once per
+    # tile_subsample visits); False: independent random stripes
+    tile_cycle: bool = True
+    # lazy (per-row) Adam on the stripe iterations: a Gaussian's moments,
+    # step count and parameters advance only when its stripe gave it a
+    # gradient (optim.init(lazy=True))
     lazy_adam: bool = False
+    # the last exact_polish_iters iterations of a subsampled phase run on
+    # the exact full-image loss (same optimizer state, same tile lists)
+    exact_polish_iters: int = 0
+    # route through the stripe loss even at tile_subsample = 1 (the one
+    # stripe is the whole image: loss-equivalent to the exact path)
+    force_subset: bool = False
+    # bin the phase's keyframe slots with one batched sort
+    # (rasterize.bin_gaussians_batched) instead of one sort per slot
     vmap_bins: bool = False
 
     def lrs(self) -> tuple:
@@ -61,14 +85,61 @@ class MappingConfig(NamedTuple):
                 self.lr_logit_opacities, self.lr_log_scales)
 
     def check_ported(self):
-        off = {"use_densification": False, "tile_subsample": 1,
-               "exact_polish_iters": 0, "force_subset": False,
-               "lazy_adam": False, "vmap_bins": False}
-        for knob, default in off.items():
-            if getattr(self, knob) != default:
-                raise NotImplementedError(
-                    f"MappingConfig.{knob} is not ported to the PyTorch "
-                    f"package yet")
+        if self.use_densification:
+            raise NotImplementedError(
+                "MappingConfig.use_densification is not ported to the "
+                "PyTorch package yet")
+
+
+def stripe_shape(gy: int, gx: int, sub: int):
+    """Stripe geometry of the fast mode: core rows per stripe, window rows
+    (core + up to one halo tile row on each side), stripe count, and the
+    rendered tile count Ts."""
+    rows_core = -(-gy // sub)
+    rows_w = min(rows_core + 2, gy)
+    n_stripes = -(-gy // rows_core)
+    return rows_core, rows_w, n_stripes, rows_w * gx
+
+
+def select_stripe(si: int, gy: int, gx: int, rows_core: int, rows_w: int,
+                  device=None):
+    """Tile ids and core mask of stripe `si`: a full-width band of rows_w
+    tile rows holding the core rows [si * rows_core, + rows_core) and a
+    halo row above and below where the image has one. When rows_core does
+    not divide gy the last stripe is shifted up to stay in range (a few
+    rows visited twice a cycle, none missed). Returns (sel [rows_w * gx]
+    ascending tile ids, core [rows_w * gx] bool)."""
+    r0 = min(int(si) * rows_core, gy - rows_core)
+    ws = min(max(r0 - 1, 0), gy - rows_w)
+    rows = ws + torch.arange(rows_w, device=device)
+    core_row = (rows >= r0) & (rows < r0 + rows_core)
+    sel = (rows[:, None] * gx
+           + torch.arange(gx, device=device)[None, :]).reshape(-1)
+    return sel, torch.repeat_interleave(core_row, gx)
+
+
+def draw_stripes(iter_slots, n_stripes: int, tile_cycle: bool,
+                 generator: torch.Generator | None, device) -> list:
+    """The stripe index of each iteration. Cycling: each keyframe slot's own
+    visits walk a permutation of the stripes, drawn anew for every cycle of
+    n_stripes visits (with one cycle shared by all slots, a slot seen a few
+    times could miss a stripe for the whole phase). Else independent
+    uniform draws. One transfer to the host for the whole phase."""
+    n = len(iter_slots)
+    if not tile_cycle:
+        return torch.randint(0, n_stripes, (n,), generator=generator,
+                             device=device).tolist()
+    seen, pairs = {}, []
+    for s in iter_slots:
+        v = seen.get(s, 0)
+        seen[s] = v + 1
+        pairs.append((s, v // n_stripes, v % n_stripes))
+    cycles = sorted({(s, c) for s, c, _ in pairs})
+    perms = torch.argsort(torch.rand((len(cycles), n_stripes),
+                                     generator=generator, device=device),
+                          dim=1).tolist()
+    row = {sc: perms[i] for i, sc in enumerate(cycles)}
+    return [row[(s, c)][j] for s, c, j in pairs]
 
 
 def _prune_mask(params: GaussianParams, alive, scene_radius, it: int,
@@ -91,15 +162,16 @@ def _prune_mask(params: GaussianParams, alive, scene_radius, it: int,
 def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
               iter_slots, cam: Camera, rcfg: RasterConfig, lcfg: LossConfig,
               mcfg: MappingConfig, generator: torch.Generator | None = None,
-              pool_q_idx=None, iso_sels=None):
+              pool_q_idx=None, iso_sels=None, stripe_idx=None):
     """One mapping phase of mcfg.num_iters iterations.
 
     kf_colors_u8 [S, H, W, 3] uint8, kf_depths [S, H, W] f32, kf_quats
     [S, 4], kf_transl [S, 3]: the keyframe window on the map's device;
     iter_slots: the keyframe slot of each iteration (host ints). The
-    random draws — the iso pool's query rows and each iteration's iso
-    sample — are `pool_q_idx` and `iso_sels[i]` when given, else drawn
-    with `generator`.
+    random draws — the iso pool's query rows, each iteration's iso
+    sample and, in the fast mode, each stripe iteration's stripe index —
+    are `pool_q_idx`, `iso_sels[i]` and `stripe_idx[i]` when given, else
+    drawn with `generator`.
 
     Returns (new MapState, loss_log [num_iters, N_LOG], bin_stats [3] =
     [true-candidate intersections dropped by the per-tile cap, total and
@@ -111,17 +183,47 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
     iter_slots = [int(s) for s in iter_slots]
     p0 = GaussianParams(*[p.detach() for p in state.params])
     alive0 = state.alive
+    dev = alive0.device
 
-    bins = {}
+    subsample = mcfg.tile_subsample > 1 or mcfg.force_subset
+    polish = (min(int(mcfg.exact_polish_iters), mcfg.num_iters)
+              if subsample else 0)
+    n_sub = len(iter_slots) - polish if subsample else 0
+    if subsample:
+        rows_core, rows_w, n_stripes, t_sub = stripe_shape(
+            cam.tiles_y, cam.tiles_x, mcfg.tile_subsample)
+        # the expansion positions are kept only when a backward will use
+        # them: the stripe's above the row crossover, the closing exact
+        # iterations' always
+        emit = subset_uses_segreduce(rcfg, t_sub) or (
+            polish > 0 and rcfg.resolve_bwd_mode() == "segreduce")
+    else:
+        emit = rcfg.resolve_bwd_mode() == "segreduce"
+
     with torch.no_grad():
-        for slot in sorted(set(iter_slots)):
+        slots = sorted(set(iter_slots))
+        projs = []
+        for slot in slots:
             mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations,
                                         kf_quats[slot], kf_transl[slot],
                                         gaussians_grad=False,
                                         camera_grad=False)
-            proj = project_gaussians(mc, qc, p0.log_scales, alive0, cam,
-                                     margin_px=mcfg.bin_margin_px)
-            bins[slot] = bin_gaussians(proj, cam, rcfg, emit_exp=True)
+            projs.append(project_gaussians(mc, qc, p0.log_scales, alive0,
+                                           cam, margin_px=mcfg.bin_margin_px))
+        # cull budgets while a binning is reused: the rect margin in
+        # pixels; an opacity logit rises by at most 3.2 lr per Adam step
+        # ((1 - b1) / sqrt(1 - b2): a sign flip after near-zero gradients)
+        budget = dict(
+            emit_exp=emit, opacity=torch.sigmoid(p0.logit_opacities[:, 0]),
+            cull_slack_px=mcfg.bin_margin_px,
+            cull_logit_drift=3.2 * mcfg.lr_logit_opacities * mcfg.num_iters)
+        if mcfg.vmap_bins:
+            bins = dict(zip(slots, bin_gaussians_batched(projs, cam, rcfg,
+                                                         **budget)))
+        else:
+            bins = {slot: bin_gaussians(proj, cam, rcfg, **budget)
+                    for slot, proj in zip(slots, projs)}
+        del projs
         n_isect = torch.stack([b.n_isect for b in bins.values()])
         bin_stats = torch.stack([
             sum(b.n_true_overflow for b in bins.values()),
@@ -137,24 +239,54 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
                 lcfg.iso_k, hash_cap=lcfg.hash_cap, grid=grid,
                 q_idx=pool_q_idx, generator=generator)
 
+        if n_sub:
+            # the phase's keyframes in the compositor's tile layout, once;
+            # an iteration gathers its stripe's rows
+            gt_tiles_all = {
+                slot: image_to_tiles(torch.cat([
+                    (kf_colors_u8[slot].to(torch.float32) / 255.0
+                     ).permute(2, 0, 1), kf_depths[slot][None]]), cam)
+                for slot in set(iter_slots[:n_sub])}
+            valid_px_full = torch.as_tensor(tile_pixel_validity(cam),
+                                            device=dev)
+            if stripe_idx is None:
+                stripe_idx = draw_stripes(iter_slots[:n_sub], n_stripes,
+                                          mcfg.tile_cycle, generator, dev)
+            stripes = {si: select_stripe(si, cam.tiles_y, cam.tiles_x,
+                                         rows_core, rows_w, dev)
+                       for si in set(int(i) for i in stripe_idx[:n_sub])}
+
+    def loss_exact(leaves, alive, slot, it):
+        gt_im = (kf_colors_u8[slot].to(torch.float32) / 255.0
+                 ).permute(2, 0, 1)
+        return compute_loss(
+            leaves, alive, kf_quats[slot], kf_transl[slot], gt_im,
+            kf_depths[slot][None], cam, rcfg, lcfg, binning=bins[slot],
+            iso_pool=iso_pool,
+            iso_sel=None if iso_sels is None else iso_sels[it],
+            generator=generator)
+
+    def loss_sub(leaves, alive, slot, it):
+        sel, core = stripes[int(stripe_idx[it])]
+        return compute_loss_subsampled(
+            leaves, alive, kf_quats[slot], kf_transl[slot],
+            gt_tiles_all[slot][sel], valid_px_full[sel], core, sel,
+            bins[slot], cam, rcfg, lcfg, iso_pool=iso_pool,
+            iso_sel=None if iso_sels is None else iso_sels[it],
+            generator=generator)
+
     lrs = mcfg.lrs()
     # log(0.01 / 0.99) in f32, as the reference computes it
     reset_val = float(torch.log(torch.tensor(0.01 / 0.99)))
-    st, opt = state, optim.init(state.params)
+    st = state
+    opt = optim.init(state.params, lazy=subsample and mcfg.lazy_adam)
     logs = []
     for it, slot in enumerate(iter_slots):
-        gt_im = (kf_colors_u8[slot].to(torch.float32) / 255.0
-                 ).permute(2, 0, 1)
-        gt_depth = kf_depths[slot][None]
         leaves = GaussianParams(*[p.detach().requires_grad_(True)
                                   for p in st.params])
         with torch.enable_grad():
-            out = compute_loss(
-                leaves, st.alive, kf_quats[slot], kf_transl[slot], gt_im,
-                gt_depth, cam, rcfg, lcfg, binning=bins[slot],
-                iso_pool=iso_pool,
-                iso_sel=None if iso_sels is None else iso_sels[it],
-                generator=generator)
+            out = (loss_sub if it < n_sub else loss_exact)(
+                leaves, st.alive, slot, it)
             grads = torch.autograd.grad(out.loss, leaves)
         with torch.no_grad():
             # seen / max_2D_radius bookkeeping (splatam.py:751-753)

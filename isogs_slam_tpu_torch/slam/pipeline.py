@@ -166,6 +166,7 @@ def _mapping_cfg(config) -> MappingConfig:
         use_densification=m.get("use_gaussian_splatting_densification",
                                 False),
         tile_subsample=int(m.get("tile_subsample", 1)),
+        tile_cycle=bool(m.get("tile_cycle", True)),
         lazy_adam=bool(m.get("lazy_adam", False)),
         force_subset=bool(m.get("force_subset", False)),
         vmap_bins=bool(m.get("vmap_bins", False)),
@@ -184,11 +185,15 @@ def _tracking_cfg(config) -> TrackingConfig:
         depth_loss_thres=t.get("depth_loss_thres", 100000),
         lr_decay=t.get("lr_decay", 1.0),
         gn_iters=t.get("gn_iters", 0),
+        gn_damping=t.get("gn_damping", 1e-3),
+        gn_phot_tol=t.get("gn_phot_tol", 0.05),
         tile_subsample=int(t.get("tile_subsample", 1)),
         pyramid_levels=t.get("pyramid_levels", 1),
         pyramid_iters=t.get("pyramid_iters", 0),
         pyramid_lr_scale=t.get("pyramid_lr_scale", 1.0),
         fan_rounds=int(t.get("fan_rounds", 0)),
+        fan_trans_eps=t.get("fan_trans_eps", 0.0),
+        fan_quat_eps=t.get("fan_quat_eps", 0.0),
         polyak_rho=float(t.get("polyak_rho", 0.0)),
         early_stop_patience=int(t.get("early_stop_patience", 0)),
         bin_margin_px=t.get("bin_margin_px", 8.0),
@@ -197,11 +202,10 @@ def _tracking_cfg(config) -> TrackingConfig:
         cross_frame_margin_px=t.get("cross_frame_margin_px", 16.0))
 
 
-def _check_ported(config, rcfg, lcfg_map, tcfg, mcfg):
+def _check_ported(config, lcfg_map, mcfg):
     """Raise NotImplementedError, naming the knob, for every configuration
-    this package does not run yet; none is silently ignored."""
-    rcfg.check_ported()
-    tcfg.check_ported()
+    this package does not run yet; none is silently ignored. Every knob
+    of the rasterizer and the tracker runs."""
     mcfg.check_ported()
     lcfg_map.check_ported()
     par = config.get("parallel", {})
@@ -243,6 +247,7 @@ class SLAM:
                                  isect_per_gaussian=r["isect_per_gaussian"],
                                  tile_chunk=r["tile_chunk"],
                                  tile_cull=r.get("tile_cull", False),
+                                 cull_q_slack=r.get("cull_q_slack", 1.5),
                                  tight_rect=r.get("tight_rect", False))
         # tracking composites against a mature map whose transmittance
         # saturates after ~10-20 Gaussians; a smaller per-tile cap halves
@@ -258,7 +263,7 @@ class SLAM:
         self.lcfg_map = _loss_cfg_mapping(cfg)
         self.tcfg = _tracking_cfg(cfg)
         self.mcfg = _mapping_cfg(cfg)
-        _check_ported(cfg, self.rcfg, self.lcfg_map, self.tcfg, self.mcfg)
+        _check_ported(cfg, self.lcfg_map, self.mcfg)
 
         self.output_dir = os.path.join(cfg["workdir"], cfg["run_name"])
         self.eval_dir = os.path.join(self.output_dir, "eval")
@@ -339,7 +344,8 @@ class SLAM:
         from ..utils.logging_utils import RunLogger
         self.logger = RunLogger(cfg)
         self.stats = {"tracking_iter_time": [], "tracking_frame_time": [],
-                      "mapping_iter_time": [], "mapping_frame_time": []}
+                      "mapping_iter_time": [], "mapping_frame_time": [],
+                      "gn_accepted": []}
         # what the run's adaptive sizing did: [(frame, old, new)] each
         self.events = {"max_per_tile": [], "isect_cap": [], "capacity": [],
                        "compactions": []}
@@ -352,7 +358,8 @@ class SLAM:
             self.tracking_cam, self.rcfg_track,
             margin_px=self.tcfg.cross_frame_margin_px,
             slack_px=self.tcfg.bin_margin_px)
-            if self.tcfg.reuse_binning else None)
+            if self.tcfg.reuse_binning and not self.tcfg.rebin_every_iter
+            else None)
 
     # ------------------------------------------------------------- helpers
     def _sync(self):
@@ -556,6 +563,8 @@ class SLAM:
             # grow AFTER the frame so the just-used binning and the rcfg
             # it was built with stay consistent
             self._note_isect_demand(int(binning.n_isect))
+        if self.tcfg.gn_iters > 0 and res.gn_accepted is not None:
+            self.stats["gn_accepted"].append(int(res.gn_accepted))
         return res
 
     # ------------------------------------------------------ densification
@@ -879,6 +888,8 @@ class SLAM:
             d["Tile-Cap True-Drop Frac (mean)"] = float(np.mean(caps))
             d["Tile-Cap Phases > 0.5%"] = int(np.sum(np.asarray(caps)
                                                      > 0.005))
+        if s["gn_accepted"]:
+            d["GN Polish Acceptance Rate"] = mean(s["gn_accepted"])
         if self._track_bins is not None:
             d["Tracking Binning Rebins"] = self._track_bins.n_rebins
             d["Tracking Binning Reuses"] = self._track_bins.n_reuses

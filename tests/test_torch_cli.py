@@ -11,6 +11,11 @@ from isogs_slam_tpu_torch.scripts import splatam
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(ROOT, "isogs_slam_tpu_torch", "configs", "synthetic",
                      "smoke.py")
+SMOKE_FAST = os.path.join(ROOT, "isogs_slam_tpu_torch", "configs",
+                          "synthetic", "smoke_fast.py")
+FULL_RES_FAST = [os.path.join(ROOT, "isogs_slam_tpu_torch", "configs",
+                              "synthetic", name + ".py")
+                 for name in ("full_res_fast", "full_res_fastlegal")]
 
 
 def test_cli_end_to_end_on_cpu(tmp_path):
@@ -63,3 +68,43 @@ def test_cli_end_to_end_on_cpu(tmp_path):
     track_mask = [float(r["mask_frac"]) for r in rows
                   if r["stage"] == "tracking"]
     assert min(track_mask) > 0.1
+
+
+def test_cli_fast_config_on_cpu(tmp_path):
+    """The CLI on the smoke-sized fast configuration (tile-subset tracking,
+    stripe mapping with an exact tail), cut to 64x80: it runs, evaluates,
+    and does not collapse (ATE < 8 cm, PSNR > 18 dB, tracking mask > 0.1)."""
+    slam = splatam.main([
+        SMOKE_FAST, "--end-at", "4", "--device", "cpu",
+        "--set", f"workdir={tmp_path}",
+        "--set", "data.desired_image_height=64",
+        "--set", "data.desired_image_width=80",
+        "--set", "mapping.num_iters=6", "--set", "map_every=2",
+        "--set", "keyframe_every=2", "--set", "tracking.num_iters=5"])
+    assert slam.tcfg.tile_subsample == slam.mcfg.tile_subsample == 2
+    assert slam.mcfg.exact_polish_iters == 2
+    res = slam.eval_results
+    assert res["Final Average ATE RMSE (cm)"] < 8.0, res
+    assert res["Average PSNR"] > 18.0, res
+    with open(os.path.join(slam.output_dir, "metrics_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    assert all(np.isfinite(float(r["loss"])) for r in rows)
+    assert min(float(r["mask_frac"]) for r in rows
+               if r["stage"] == "tracking") > 0.1
+
+
+def test_full_width_fast_configs_load():
+    """The full-width fast configurations load through the CLI's loader and
+    set the levers of the reference's presets on this package's full_res
+    config."""
+    from isogs_slam_tpu_torch.slam.pipeline import (_mapping_cfg,
+                                                    _tracking_cfg)
+    from isogs_slam_tpu_torch.slam.config import inject_defaults
+    for path, polish in zip(FULL_RES_FAST, (0, 4)):
+        cfg = inject_defaults(splatam.load_experiment_config(path))
+        assert cfg["primary_device"] == "cuda"
+        assert cfg["data"]["desired_image_width"] == 1200
+        assert _tracking_cfg(cfg).tile_subsample == 4
+        m = _mapping_cfg(cfg)
+        assert (m.tile_subsample, m.exact_polish_iters) == (4, polish)
+        m.check_ported()

@@ -270,3 +270,80 @@ def test_fused_render_cuda_matches_cpu(dev):
     assert float((s1 - s2).abs().max()) < 1e-5
     for a, b in zip(g1, g2):
         assert float((a - b).abs().max()) / float(a.abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_composite_kernels_on_a_virtual_row(dev, out_dtype):
+    """tiles_x = T, as the tile-subset renders launch the kernels: 1000
+    tiles in one row (pixel x up to 16,000, where an f32 ulp is 2^-10 px)
+    with partial counts, against the plain versions."""
+    T, K = 1000, 256
+    g, c = _gdata(T, K, 4, T, seed=9)
+    g, c = g.to(dev), c.to(dev)
+    out, ft, last, tend = composite_fwd_cuda(g, c, 4, T, 3)
+    out_p, ft_p = composite_fwd_plain(g, c, 4, T, 3, chunk=50)
+    tol = 1e-5 * float(out_p.abs().max())
+    # a threshold test may flip in a handful of pixels between the two
+    # summation orders; none may be far off
+    bad = int(((out - out_p).abs() > tol).any(-1).sum()
+              + ((ft - ft_p).abs() > 1e-5).sum())
+    assert bad <= 2, bad
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gout = torch.randn(out.shape, generator=gen, device=dev)
+    dfin = torch.randn(ft.shape, generator=gen, device=dev)
+    dg = composite_bwd_cuda(g, c, gout, dfin, last, tend, 4, T, 3, out_dtype)
+    dg_p = composite_bwd_plain(g, c, gout, dfin, 4, T, 3, chunk=50)
+    diff = (dg.float() - dg_p.to(out_dtype).float()).abs()
+    rel = diff.amax(dim=(0, 1)) / dg_p.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+    assert float(rel.max()) < (1e-4 if out_dtype == torch.float32
+                               else 2 ** -7)
+
+
+@pytest.mark.parametrize("scatter_bf16", [False, True])
+def test_subset_render_routes_agree(dev, scatter_bf16):
+    """render_tiles_subset on a subset with partial tiles: the scatter
+    route and the segment-reduce route (kernel C on the subset's expansion
+    positions) give the CPU render's tiles and gradients (1e-5 / 1e-4 of
+    max in f32; one bf16 rounding of the max with bf16 rows)."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.rasterize import (MAPPING_LIVE_COLS,
+                                                    RasterConfig,
+                                                    bin_gaussians,
+                                                    project_gaussians,
+                                                    render_tiles_subset)
+    rng = np.random.default_rng(0)
+    n = 1500
+    means = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    means[:, 2] += 2.5
+    arrs = [means, rng.normal(0, 1, (n, 4)),
+            np.log(rng.uniform(0.02, 0.1, (n, 3))),
+            rng.uniform(-2, 3, (n, 1)), rng.uniform(0, 1, (n, 3))]
+    cam = Camera(width=88, height=52, fx=80.0, fy=80.0, cx=43.5, cy=25.5)
+    sel_np = np.array([0, 5, 6, 11, 12, 17, 18, 23])   # edge tiles included
+
+    def run(device, route):
+        cfg = RasterConfig(max_per_tile=256, bwd_mode=route,
+                           grad_scatter_bf16=scatter_bf16)
+        ps = [torch.tensor(a, dtype=torch.float32, device=device,
+                           requires_grad=True) for a in arrs]
+        alive = torch.ones(n, dtype=torch.bool, device=device)
+        with torch.no_grad():
+            proj = project_gaussians(ps[0], ps[1], ps[2], alive, cam)
+            b = bin_gaussians(proj, cam, cfg, emit_exp=True)
+        sel = torch.as_tensor(sel_np, device=device)
+        out, ft, _ = render_tiles_subset(
+            ps[0], ps[1], ps[2], ps[3], ps[4], alive, sel, b, cam, cfg,
+            live_grad_cols=MAPPING_LIVE_COLS)
+        loss = (out ** 2).sum() + ft.sum()
+        gs = torch.autograd.grad(loss, ps)
+        return out.detach().cpu(), [x.cpu() for x in gs]
+
+    ref_out, ref_g = run("cpu", "segreduce")
+    tol = 2 ** -7 if scatter_bf16 else 1e-4
+    for route in ("scatter", "segreduce"):
+        out, gs = run(dev, route)
+        assert float((out - ref_out).abs().max()) < 1e-5 * max(
+            1.0, float(ref_out.abs().max()))
+        for a, b in zip(ref_g, gs):
+            assert float((a - b).abs().max()) / float(a.abs().max()) < tol, \
+                route

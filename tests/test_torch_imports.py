@@ -22,13 +22,14 @@ def test_port_imports_with_jax_blocked():
                if m == "isogs_slam_tpu" or m.startswith("isogs_slam_tpu.")
                or m == "jax" and sys.modules[m] is not None]
         assert not bad, bad
+        assert "isogs_slam_tpu_torch.slam.icp" in names
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 43
+    assert int(out.stdout.strip()) >= 44
 
 
 def test_port_imports_without_image_and_plot_libraries():

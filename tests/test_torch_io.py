@@ -120,14 +120,26 @@ def test_checkpoint_resume_replays_keyframes(tmp_path):
         data["rgb_colors"], atol=1e-5)
 
 
-@pytest.mark.parametrize("source", ["reference", "port"])
+def _fast(cfg):
+    """The fast configuration's levers (nothing of them is stored in a
+    checkpoint or in the arrays)."""
+    cfg["tracking"]["tile_subsample"] = 2
+    cfg["mapping"]["tile_subsample"] = 2
+    cfg["mapping"]["exact_polish_iters"] = 2
+    return cfg
+
+
+@pytest.mark.parametrize("source", ["reference", "port", "port_fast"])
 def test_slam_state_crosses_as_arrays(tmp_path, source):
     """slam_to_arrays reads either package's SLAM object; slam_from_arrays
     puts trajectory, keyframe library and map into a new SLAM of the port,
-    which then continues from that state."""
+    which then continues from that state; also between two SLAM objects
+    built with the fast configuration."""
     frames = _frames()
     cls = JSLAM if source == "reference" else SLAM
-    src = cls(_config(tmp_path, "src", gaussian_distribution="anisotropic"),
+    tweak = _fast if source == "port_fast" else (lambda c: c)
+    src = cls(tweak(_config(tmp_path, "src",
+                            gaussian_distribution="anisotropic")),
               dataset=frames)
     color, depth, _, pose = frames[0]
     src.initialize_first_frame(color, depth)
@@ -145,7 +157,8 @@ def test_slam_state_crosses_as_arrays(tmp_path, source):
 
     arrays = convert.slam_to_arrays(src)
     dst = convert.slam_from_arrays(
-        SLAM(_config(tmp_path, "dst", gaussian_distribution="anisotropic"),
+        SLAM(tweak(_config(tmp_path, "dst",
+                           gaussian_distribution="anisotropic")),
              dataset=frames), arrays)
     back = convert.slam_to_arrays(dst)
     assert set(back) == set(arrays)
@@ -161,3 +174,6 @@ def test_slam_state_crosses_as_arrays(tmp_path, source):
     res = dst.track(1, im1, d1)
     assert res.iters_run == 6 and np.isfinite(dst.cam_trans[:, 1]).all()
     assert N_FRAMES == dst.num_frames
+    if source == "port_fast":
+        assert dst.tcfg.tile_subsample == dst.mcfg.tile_subsample == 2
+        assert dst.map(1, im1, d1).shape[0] == dst.mcfg.num_iters

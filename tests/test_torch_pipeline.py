@@ -221,18 +221,10 @@ def test_ensure_capacity_compacts_then_grows(tmp_path):
 
 
 NOT_PORTED = {
-    "tracking.gn_iters": 2, "tracking.fan_rounds": 1,
-    "tracking.polyak_rho": 0.5, "tracking.early_stop_patience": 3,
-    "tracking.tile_subsample": 2, "tracking.rebin_every_iter": True,
-    "mapping.tile_subsample": 2, "mapping.lazy_adam": True,
-    "mapping.vmap_bins": True, "mapping.force_subset": True,
-    "mapping.exact_polish_iters": 2,
     "mapping.use_gaussian_splatting_densification": True,
-    "mapping.iso_pool_refresh_phases": 3, "raster.tile_cull": True,
-    "raster.tight_rect": True, "parallel.map_views": 2,
+    "mapping.iso_pool_refresh_phases": 3, "parallel.map_views": 2,
     "parallel.track_tiles": 2, "isogs.knn_pool_size": 0,
 }
-
 
 @pytest.mark.parametrize("knob", list(NOT_PORTED))
 def test_unported_knob_raises_at_construction(tmp_path, knob):
