@@ -31,8 +31,10 @@ before the result line):
      first-frame init, two tracking frames from the ground-truth pose, one
      more tracking frame for each tracking refinement (GN polish, fan,
      Polyak, early stop, rebin_every_iter), densify + 10 mapping
-     iterations, with the kernels' launch counters set to 0 before and
-     read after;
+     iterations, then 10 more with in-mapping clone / split densification
+     every 5th iteration (threshold: the 90th percentile of the rows'
+     |d loss / d(u, v)| at this size), with the kernels' launch counters
+     set to 0 before and read after;
   5. the pipeline paths: the port's CLI (scripts.splatam.main) in-process
      at 1200x680 with evaluation and checkpoints into a temporary run
      directory, launch counters set to 0 before and read after each: the
@@ -42,13 +44,24 @@ before the result line):
      capacity growths, peak memory, the quality metrics and the launch
      counters, and fails on a kernel that was not launched, a non-finite
      loss or parameter, a tracking mask under 0.1, ATE >= 2 cm or
-     PSNR <= 25 dB;
+     PSNR <= 25 dB; between the two, on the exact run's last checkpoint:
+  5c. post-SLAM optimization (scripts.post_splatam_opt.PostSLAMOpt on
+     configs/synthetic/post_splatam_opt_fullres.py, 400 iterations at
+     1200x680 on the SLAM run's poses, then eval): fails on non-finite
+     values, PSNR <= 25 dB or an ATE that is not the SLAM run's;
+  5d. the offline trainer (scripts.gaussian_splatting.offline_splatting on
+     configs/synthetic/gaussian_splatting.py at 1200x680, 16 frames, 300
+     iterations, clone / split at 100 and 200 above the 90th percentile of
+     the rows' |d loss / d(u, v)| at this size, then eval): fails unless it
+     densified and its loss fell, on non-finite values or PSNR <= 25 dB;
+  5e. novel views (scripts.eval_novel_view.main on 5c's checkpoint);
   6. the `kernels` JSON line;
   7. the result line {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py
 (`--profile` adds, after each pipeline path, a torch.profiler table of one
-more tracking frame and mapping phase of that path.)
+more tracking frame and mapping phase of that path, and after 5c one of
+one more post-opt chunk.)
 """
 from __future__ import annotations
 
@@ -450,12 +463,14 @@ def cull_phase(ctx, cam, rcfg, dev):
     phase("cull", t0)
 
 
-def pipeline_path(root, config_name, end_at, extra_args=()):
+def pipeline_path(root, config_name, end_at, extra_args=(), keep=False):
     """Phase 5: the port's CLI in-process on configs/synthetic/<config_name>
     with evaluation and checkpoints, into a temporary run directory; the
     launch counters are set to 0 before and read after. Prints the run's
     numbers, raises on a failed check, returns (launch counts, seconds of
-    each tracking frame, seconds of each mapping phase)."""
+    each tracking frame, seconds of each mapping phase, the SLAM object).
+    keep=True leaves the run directory (slam.output_dir holds the
+    checkpoints) for the caller to delete."""
     import numpy as np
     import torch
     from isogs_slam_tpu_torch.io.checkpoints import (latest_checkpoint,
@@ -481,7 +496,10 @@ def pipeline_path(root, config_name, end_at, extra_args=()):
         ckpts = sorted(os.listdir(slam.output_dir))
         ck_frame, ck_path = latest_checkpoint(slam.output_dir)
         ck = load_checkpoint(ck_path)
-    finally:
+    except BaseException:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        raise
+    if not keep:
         shutil.rmtree(run_dir, ignore_errors=True)
     st, ev, res = slam.stats, slam.events, slam.eval_results
     tr, mp = st["tracking_frame_time"][1:], st["mapping_frame_time"]
@@ -537,7 +555,247 @@ def pipeline_path(root, config_name, end_at, extra_args=()):
         raise AssertionError(f"the run collapsed: {res}")
     if "--profile" in sys.argv[1:]:
         profile_pipeline(slam, end_at + 1)
-    return launches_cli, list(tr), list(mp)
+    return launches_cli, list(tr), list(mp), slam
+
+
+def uv_grad_quantile(state, im, depth, quat, trans, cam, rcfg, q=0.9):
+    """The q-quantile, over the rendered rows, of |d loss / d(u, v)| of one
+    offline loss at a frame: a densification threshold that makes about
+    1 - q of the rows hot at this resolution (the configs' grad_thresh is
+    set for their own image size; the per-Gaussian gradient of a loss that
+    is a mean over pixels shrinks with the pixel count)."""
+    import torch
+    from isogs_slam_tpu_torch.core.gaussians import GaussianParams
+    from isogs_slam_tpu_torch.slam.offline import offline_loss
+    leaves = GaussianParams(*[p.detach().requires_grad_(True)
+                              for p in state.params])
+    m2d = torch.zeros((state.capacity, 2), device=im.device,
+                      requires_grad=True)
+    with torch.enable_grad():
+        total, _, _, aux = offline_loss(leaves, state.alive, quat, trans, im,
+                                        depth, cam, rcfg, 1.0, 1.0, m2d)
+        (g,) = torch.autograd.grad(total, m2d)
+    norms = g.norm(dim=1)[aux["radii"] > 0]
+    return float(torch.quantile(norms, q)), float(norms.median())
+
+
+def _config_file(config, directory, name):
+    """Write an experiment config module holding `config` (a dict of
+    literals) and return its path: how the CLIs of phase 5e are given a
+    config with a temporary workdir."""
+    path = os.path.join(directory, name)
+    with open(path, "w") as f:
+        f.write(f"config = {config!r}\n")
+    return path
+
+
+def _finite_state(state):
+    import torch
+    return all(bool(torch.isfinite(p[state.alive]).all())
+               for p in state.params)
+
+
+def _offline_numbers(runner, name, t_run):
+    """Print an offline runner's per-chunk losses, densification counts,
+    Gaussians, capacity, peak memory and s/iteration; return the
+    iteration count."""
+    import numpy as np
+    import torch
+    st = runner.stats
+    n_iter = sum(len(c) for c in st["chunk_loss"])
+    first = float(np.mean(st["chunk_loss"][0][:, 0]))
+    last = float(np.mean(st["chunk_loss"][-1][:, 0]))
+    c = np.sum(st["densify_counts"], axis=0)
+    # the first chunk also pays the allocator's warm-up
+    s_it = float(np.sum(st["chunk_time"][1:]) / max(
+        n_iter - len(st["chunk_loss"][0]), 1))
+    print(f"{name}: {n_iter} iterations in {len(st['chunk_loss'])} chunks, "
+          f"{t_run:.1f} s for the whole phase; {s_it:.4f} s/iteration over "
+          f"the chunks after the first; chunk-mean loss first {first:.5f} "
+          f"last {last:.5f}; Gaussians alive per chunk {st['n_alive']}")
+    over = max(int(np.max(ln[:, 3])) for ln in st["chunk_loss"])
+    print(f"{name}: most intersections one binning dropped at its caps "
+          f"{over} (intersection capacity "
+          f"{runner.rcfg.max_isect(runner.state.capacity)})")
+    print(f"{name}: densification {int(c[0])} cloned, {int(c[1])} split, "
+          f"{int(c[2])} rows dropped at capacity {runner.state.capacity} "
+          f"(high-water mark {int(runner.state.hwm)}); "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return n_iter, first, last, c
+
+
+def postopt_path(root, slam, tmp):
+    """Phase 5c: PostSLAMOpt in process on the port's
+    post_splatam_opt_fullres.py seeded from the exact pipeline run's last
+    checkpoint, then save and eval_sequence. The poses are the SLAM run's
+    (clamped to its checkpoint frame), so the ATE must equal its ATE; the
+    PSNR is printed beside the SLAM map's. Returns (launch counts, the
+    runner)."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.scripts import gaussian_splatting as GS
+    from isogs_slam_tpu_torch.scripts.post_splatam_opt import PostSLAMOpt
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    config = load_experiment_config(os.path.join(
+        root, "isogs_slam_tpu_torch", "configs", "synthetic",
+        "post_splatam_opt_fullres.py"))
+    config["workdir"] = tmp
+    config["data"]["param_ckpt_path"] = slam.output_dir
+    runner = PostSLAMOpt(config)
+    runner.init_sweep()
+    runner.optimize()
+    runner.save()
+    res = GS.evaluate(runner, config)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    t_run = time.perf_counter() - t0
+    tr = config["train"]
+    print(f"post-SLAM optimization: post_splatam_opt_fullres.py, "
+          f"{runner.cam.width}x{runner.cam.height}, {runner.num_frames} "
+          f"frames after the clamp to the checkpoint frame, "
+          f"{tr['num_iters_mapping']} iterations in chunks of "
+          f"{tr['chunk_iters']} over {tr['frames_per_chunk']} frames, "
+          f"densification {tr['use_gaussian_splatting_densification']}")
+    _offline_numbers(runner, "post-opt", t_run)
+    slam_res = slam.eval_results
+    print(f"post-opt PSNR {res['Average PSNR']:.3f} dB against the SLAM "
+          f"map's {slam_res['Average PSNR']:.3f} dB (same frames, same "
+          f"poses); MS-SSIM {res['Average MS-SSIM']:.4f} against "
+          f"{slam_res['Average MS-SSIM']:.4f}; depth L1 "
+          f"{res['Average Depth L1 (cm)']:.4f} against "
+          f"{slam_res['Average Depth L1 (cm)']:.4f} cm; ATE "
+          f"{res['Final Average ATE RMSE (cm)']:.6f} against "
+          f"{slam_res['Final Average ATE RMSE (cm)']:.6f} cm")
+    print(f"launches on the post-opt path {launches}")
+    phase("post-SLAM optimization (5c)", t0)
+    losses = np.concatenate(runner.stats["chunk_loss"])[:, :3]
+    if not (np.isfinite(losses).all() and _finite_state(runner.state)):
+        raise AssertionError("post-opt: non-finite losses or parameters")
+    if not res["Average PSNR"] > 25.0:
+        raise AssertionError(f"post-opt collapsed: {res}")
+    if abs(res["Final Average ATE RMSE (cm)"]
+           - slam_res["Final Average ATE RMSE (cm)"]) > 1e-3:
+        raise AssertionError("post-opt moved the poses: its ATE is not the "
+                             "SLAM run's")
+    if "--profile" in sys.argv[1:]:
+        profile_offline_chunk(runner)
+    return launches, runner
+
+
+def offline_path(root, tmp):
+    """Phase 5d: offline_splatting in process on the port's
+    gaussian_splatting.py at 680x1200 with the raster block of full_res.py,
+    16 frames, 300 iterations densifying at 100 and 200. Fails unless the
+    map densified (the high-water mark grew, rows were cloned or split),
+    the loss fell and the eval's PSNR is above 25 dB. Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.scripts import gaussian_splatting as GS
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    from isogs_slam_tpu_torch.slam.pipeline import _to_chw_frame
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    config = load_experiment_config(os.path.join(
+        root, "isogs_slam_tpu_torch", "configs", "synthetic",
+        "gaussian_splatting.py"))
+    config["workdir"] = tmp
+    config["capacity_granule"] = 65536
+    config["raster"] = dict(max_per_tile=512, isect_per_gaussian=2.5,
+                            tile_chunk=256)
+    config["data"].update(desired_image_height=H, desired_image_width=W,
+                          num_frames=16)
+    tr = config["train"]
+    tr.update(num_iters_mapping=300, add_gaussians_every=2)
+    tr["densify_dict"].update(start_after=100, densify_every=100,
+                              stop_after=200)
+    print(f"offline trainer: gaussian_splatting.py with data "
+          f"{W}x{H}, 16 frames, raster {config['raster']}, "
+          f"add_gaussians_every 2, 300 iterations in chunks of "
+          f"{tr['chunk_iters']} over {tr['frames_per_chunk']} frames, "
+          f"densify_dict {tr['densify_dict']}")
+    runner = GS.OfflineGS(config)
+    runner.init_sweep()
+    hwm0, n0 = int(runner.state.hwm), int(runner.state.num_alive())
+    color, depth, _, _ = runner.dataset[0]
+    im, d = _to_chw_frame(color, depth, runner.device)
+    thresh, med = uv_grad_quantile(
+        runner.state, im, d, torch.as_tensor(runner.cam_rots[:, 0],
+                                              device=runner.device),
+        torch.as_tensor(runner.cam_trans[:, 0], device=runner.device),
+        runner.cam, runner.rcfg)
+    runner.ocfg = runner.ocfg._replace(
+        densify=runner.ocfg.densify._replace(grad_thresh=thresh))
+    print(f"offline: |d loss / d(u, v)| over the rendered rows at frame 0 "
+          f"after the sweep: median {med:.3e}, 90th percentile {thresh:.3e}"
+          f"; grad_thresh {tr['densify_dict']['grad_thresh']} (set for "
+          f"the config's 120x160) -> {thresh:.3e}")
+    runner.optimize()
+    runner.save()
+    res = GS.evaluate(runner, config)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    t_run = time.perf_counter() - t0
+    _, first, last, c = _offline_numbers(runner, "offline", t_run)
+    print(f"offline: Gaussians {n0} after the sweep (high-water mark "
+          f"{hwm0}) -> {int(runner.state.num_alive())} (high-water mark "
+          f"{int(runner.state.hwm)}); PSNR {res['Average PSNR']:.3f} dB, "
+          f"MS-SSIM {res['Average MS-SSIM']:.4f}, depth L1 "
+          f"{res['Average Depth L1 (cm)']:.4f} cm, LPIPS "
+          f"{res['Average LPIPS']:.5f}")
+    print(f"launches on the offline path {launches}")
+    phase("offline trainer (5d)", t0)
+    losses = np.concatenate(runner.stats["chunk_loss"])[:, :3]
+    if not (np.isfinite(losses).all() and _finite_state(runner.state)):
+        raise AssertionError("offline: non-finite losses or parameters")
+    if not (int(runner.state.hwm) > hwm0 and c[0] + c[1] > 0):
+        raise AssertionError("offline: densification did not fire")
+    if not last < first:
+        raise AssertionError("offline: the loss did not fall")
+    if not res["Average PSNR"] > 25.0:
+        raise AssertionError(f"offline trainer collapsed: {res}")
+    return launches
+
+
+def nvs_path(root, ckpt_path, tmp):
+    """Phase 5e: eval_novel_view.main on 5c's checkpoint at 1200x680, with
+    a copy of post_splatam_opt_fullres.py whose workdir is temporary.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.scripts import eval_novel_view
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    config = load_experiment_config(os.path.join(
+        root, "isogs_slam_tpu_torch", "configs", "synthetic",
+        "post_splatam_opt_fullres.py"))
+    config["workdir"] = tmp
+    path = _config_file(config, tmp, "nvs_config.py")
+    res = eval_novel_view.main([path, "--checkpoint", ckpt_path])
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    print(f"novel views (frames 1-{res['Frames']} of "
+          f"{config['data']['num_frames']}, the map trained on frames 0-15): "
+          f"PSNR {res['Average NVS PSNR']:.3f} dB, MS-SSIM "
+          f"{res['Average NVS MS-SSIM']:.4f}, LPIPS "
+          f"({res['LPIPS Variant']}) {res['Average NVS LPIPS']:.5f}, depth "
+          f"RMSE {res['Average NVS Depth RMSE (cm)']:.4f} cm, L1 "
+          f"{res['Average NVS Depth L1 (cm)']:.4f} cm")
+    print(f"launches on the NVS path {launches}")
+    phase("novel view (5e)", t0)
+    if not all(np.isfinite(v) for k, v in res.items()
+               if isinstance(v, float)):
+        raise AssertionError(f"novel-view metrics not finite: {res}")
+    return launches
 
 
 def main() -> int:
@@ -563,6 +821,7 @@ def main() -> int:
     from isogs_slam_tpu_torch.ops import composite as comp
     from isogs_slam_tpu_torch.ops.segreduce import (
         segment_reduce_rows_cuda, segment_reduce_rows_plain)
+    from isogs_slam_tpu_torch.slam.densify import DensifyConfig
     from isogs_slam_tpu_torch.slam.losses import LossConfig
     from isogs_slam_tpu_torch.slam.keyframes import KeyframeLibrary
     from isogs_slam_tpu_torch.slam.mapping import (MappingConfig,
@@ -864,6 +1123,31 @@ def main() -> int:
           f"{time.perf_counter() - tm:.3f} s, {int(state.num_alive())} "
           f"Gaussians, bin stats (true overflow, isect, max isect) "
           f"{[int(x) for x in bstats]}")
+    # one more mapping phase with in-mapping densification (clone / split
+    # from the gradient in (u, v), every 5th iteration)
+    thresh, med = uv_grad_quantile(state, im0, d0, q0, t0_, cam, rcfg)
+    print(f"|d loss / d(u, v)| over the rendered rows at frame 0: median "
+          f"{med:.3e}, 90th percentile {thresh:.3e} (the densification "
+          f"threshold below)")
+    tm = time.perf_counter()
+    dcfg = DensifyConfig(start_after=0, remove_big_after=10 ** 9,
+                         stop_after=10 ** 9, densify_every=5,
+                         grad_thresh=thresh, reset_opacities=False)
+    hwm_d = int(state.hwm)
+    state, dlog, dstats = map_frame(
+        state, kf.colors, kf.depths, kf.quats, kf.trans, iter_slots, cam,
+        rcfg, lcfg_map, mcfg._replace(use_densification=True, densify=dcfg),
+        generator=gen)
+    torch.cuda.synchronize()
+    n_clone, n_split, n_drop = (int(x) for x in dstats[3:6])
+    print(f"mapping with densification ({MAP_ITERS} iterations, "
+          f"densify_every 5): {time.perf_counter() - tm:.3f} s; {n_clone} "
+          f"cloned, {n_split} split, {n_drop} rows dropped at capacity "
+          f"{state.capacity}; high-water mark {hwm_d} -> {int(state.hwm)}, "
+          f"{int(state.num_alive())} Gaussians")
+    if not (n_clone + n_split > 0 and int(state.hwm) > hwm_d
+            and bool(torch.isfinite(dlog).all())):
+        raise AssertionError("in-mapping densification did not run")
     launches_hand = dict(_cuda.LAUNCHES)
     print(f"final mapping loss terms (loss, im, depth, flat, iso, "
           f"density, mask) {[round(float(x), 6) for x in last_map]}")
@@ -878,11 +1162,29 @@ def main() -> int:
     del state, kf, frames, ds, res, mlog
     torch.cuda.empty_cache()
 
-    # 5. the pipeline paths: the port's CLI at full width, counters from 0
-    launches_cli, tr_exact, mp_exact = pipeline_path(root, "full_res.py",
-                                                     END_AT_EXACT)
+    # 5. the pipeline paths: the port's CLI at full width, counters from 0;
+    # the exact run's directory stays for 5c
+    launches_cli, tr_exact, mp_exact, slam = pipeline_path(
+        root, "full_res.py", END_AT_EXACT, keep=True)
+    slam_dir = os.path.dirname(slam.output_dir)
+    tmp = tempfile.mkdtemp(prefix="isogs_offline_")
+    try:
+        # 5c, 5d, 5e: post-SLAM optimization, the offline trainer and the
+        # novel-view evaluation, counters from 0 before each
+        torch.cuda.empty_cache()
+        launches_post, post = postopt_path(root, slam, tmp)
+        ckpt_post = os.path.join(post.output_dir,
+                                 f"params{post.num_frames - 1}.npz")
+        del post, slam
+        torch.cuda.empty_cache()
+        launches_offline = offline_path(root, tmp)
+        torch.cuda.empty_cache()
+        launches_nvs = nvs_path(root, ckpt_post, tmp)
+    finally:
+        shutil.rmtree(slam_dir, ignore_errors=True)
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    launches_fast, tr_fast, mp_fast = pipeline_path(
+    launches_fast, tr_fast, mp_fast, _ = pipeline_path(
         root, "full_res_fastlegal.py", END_AT_FAST)
     nt, nm = len(tr_exact), len(mp_exact)
     print(f"fast against exact, same call, over the frames both ran (1-"
@@ -902,10 +1204,14 @@ def main() -> int:
 
     # 6. kernels line: launches of the paths, each read after its run
     paths = (("hand-driven", launches_hand), ("pipeline", launches_cli),
-             ("fast pipeline", launches_fast))
+             ("post-opt", launches_post), ("offline", launches_offline),
+             ("novel view", launches_nvs), ("fast pipeline", launches_fast))
     kernels = []
+    forward_only = ("novel view",)
     for path_name, launches in paths:
         for kname in SOURCES:
+            if path_name in forward_only and kname != "composite_fwd":
+                continue
             if not any(k.startswith(kname) and n > 0
                        for k, n in launches.items()):
                 raise AssertionError(f"{kname} was not launched on the "
@@ -944,6 +1250,47 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile_offline_chunk(runner):
+    """torch.profiler over one more chunk of the post-opt runner (not part
+    of the default run): the device's busy share of the chunk."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from isogs_slam_tpu_torch.core import optim
+    from isogs_slam_tpu_torch.slam.offline import expon_lr, offline_chunk
+    t0 = time.perf_counter()
+    ocfg, dev = runner.ocfg, runner.device
+    fsel = np.arange(min(ocfg.frames_per_chunk, runner.num_frames))
+    cols = [np.clip(runner.dataset[int(f)][0], 0, 255).astype(np.uint8)
+            for f in fsel]
+    deps = [runner.dataset[int(f)][1][..., 0] for f in fsel]
+    frames = (torch.as_tensor(np.stack(cols), device=dev),
+              torch.as_tensor(np.stack(deps), device=dev),
+              torch.as_tensor(runner.cam_rots[:, fsel].T, device=dev),
+              torch.as_tensor(runner.cam_trans[:, fsel].T, device=dev))
+    iters = np.arange(ocfg.chunk_iters) % len(fsel)
+    lrs = expon_lr(np.arange(1, ocfg.chunk_iters + 1), ocfg.lr_means3d,
+                   ocfg.lr_means3d_final, ocfg.lr_delay_mult, ocfg.num_iters)
+    opt = optim.init(runner.state.params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        offline_chunk(runner.state, opt, *frames, iters, lrs, 0, runner.cam,
+                      runner.rcfg, ocfg)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter() - tw
+    dev_s = sum(e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=20,
+                                    max_name_column_width=60))
+    print(f"profile: one post-opt chunk of {ocfg.chunk_iters} iterations "
+          f"{t_c:.3f} s (wall, profiler on); device time {dev_s:.3f} s = "
+          f"{dev_s / t_c:.3f} of the wall time")
+    phase("profile (post-opt chunk)", t0)
 
 
 def profile_pipeline(slam, time_idx):

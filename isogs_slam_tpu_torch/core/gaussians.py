@@ -84,8 +84,9 @@ def new_gaussian_rows(points: torch.Tensor, colors: torch.Tensor,
 def append_rows(state: MapState, rows: GaussianParams, valid: torch.Tensor,
                 time_idx) -> MapState:
     """Write rows[valid] into slots [hwm, hwm + sum(valid)); rows whose
-    destination exceeds capacity are dropped. The densification stats are
-    zeroed globally (splatam.py:835-837)."""
+    destination exceeds capacity are dropped. time_idx: one creation frame
+    for every row, or a tensor of one per row of `rows`. The densification
+    stats are zeroed globally (splatam.py:835-837)."""
     C = state.capacity
     v = valid.to(torch.int64)
     dest = state.hwm + torch.cumsum(v, 0) - v
@@ -94,7 +95,11 @@ def append_rows(state: MapState, rows: GaussianParams, valid: torch.Tensor,
     params = GaussianParams(*[p.index_put((idx,), r[keep])
                               for p, r in zip(state.params, rows)])
     alive = state.alive.index_fill(0, idx, True)
-    timestep = state.timestep.index_fill(0, idx, float(time_idx))
+    if torch.is_tensor(time_idx) and time_idx.dim() > 0:
+        timestep = state.timestep.index_put(
+            (idx,), time_idx[keep].to(state.timestep.dtype))
+    else:
+        timestep = state.timestep.index_fill(0, idx, float(time_idx))
     n_add = torch.minimum(torch.sum(v), C - state.hwm)
     z = torch.zeros_like(state.max_2d_radius)
     return state._replace(params=params, alive=alive, hwm=state.hwm + n_add,

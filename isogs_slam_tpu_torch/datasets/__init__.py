@@ -1,14 +1,12 @@
 """Dataset registry (counterpart of isogs_slam_tpu/datasets/__init__.py).
 
 The file loaders need imageio and PIL, which a machine that only runs the
-synthetic scene may lack: they are imported inside their branches."""
+synthetic scene may lack: they are imported inside their branches, and the
+image libraries at a loader's first read."""
 from __future__ import annotations
 
 from .dataconfig import load_dataset_config
 from .synthetic import SyntheticDataset
-
-_NOT_PORTED = ("icl", "tum", "scannet", "scannetpp", "nerfcapture", "azure",
-               "azurekinect", "record3d", "realsense", "ai2thor")
 
 
 def get_dataset(config_dict: dict, basedir: str, sequence: str,
@@ -33,8 +31,31 @@ def get_dataset(config_dict: dict, basedir: str, sequence: str,
             n_per_wall=max(2500, (h * w) // 8),
             traj_step=config_dict.get("synthetic_traj_step", 0.012),
             device=device)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name!r} dataset loader is not ported to the PyTorch "
-            f"package yet (not ported: {', '.join(_NOT_PORTED)})")
+    if name == "icl":
+        from .icl import ICLDataset
+        return ICLDataset(config_dict, basedir, sequence, **kwargs)
+    if name == "tum":
+        from .tum import TUMDataset
+        return TUMDataset(config_dict, basedir, sequence, **kwargs)
+    if name == "scannet":
+        from .scannet import ScannetDataset
+        return ScannetDataset(config_dict, basedir, sequence, **kwargs)
+    if name == "scannetpp":
+        from .nerfcapture import ScannetPPDataset
+        return ScannetPPDataset(basedir, sequence, **kwargs)
+    if name == "nerfcapture":
+        from .nerfcapture import NeRFCaptureDataset
+        return NeRFCaptureDataset(basedir, sequence, **kwargs)
+    if name in ("azure", "azurekinect"):
+        from .azure import AzureKinectDataset
+        return AzureKinectDataset(config_dict, basedir, sequence, **kwargs)
+    if name == "record3d":
+        from .record3d import Record3DDataset
+        return Record3DDataset(config_dict, basedir, sequence, **kwargs)
+    if name == "realsense":
+        from .record3d import RealsenseDataset
+        return RealsenseDataset(config_dict, basedir, sequence, **kwargs)
+    if name == "ai2thor":
+        from .scannet import Ai2thorDataset
+        return Ai2thorDataset(config_dict, basedir, sequence, **kwargs)
     raise ValueError(f"Unknown dataset name {config_dict['dataset_name']}")

@@ -166,12 +166,18 @@ def _tile_rect(u, v, r, cam: Camera):
 
 
 def project_gaussians(means_cam, quats, log_scales, alive, cam: Camera,
-                      margin_px: float = 0.0) -> Projected:
+                      margin_px: float = 0.0,
+                      means2d_offset=None) -> Projected:
     """Per-Gaussian EWA projection. margin_px widens the binning rect only
-    (frozen tile lists reused across pose updates stay supersets)."""
+    (frozen tile lists reused across pose updates stay supersets).
+    means2d_offset: optional [N, 2] zero tensor added to (u, v); its
+    gradient is the densification signal d loss / d(u, v)."""
     tz = means_cam[:, 2]
     u, v, cA, cB, cC, det, radius_f = _ewa_core(means_cam, quats,
                                                 log_scales, cam)
+    if means2d_offset is not None:
+        u = u + means2d_offset[:, 0]
+        v = v + means2d_offset[:, 1]
     conic = torch.stack([cA, cB, cC], dim=-1)
     valid = alive & (tz > NEAR_CULL_Z) & (det != 0)
     ud, vd, rd = u.detach(), v.detach(), radius_f.detach()
@@ -626,11 +632,15 @@ def _tiles_to_image(tiles, cam: Camera):
 
 def render(means_cam, quats_cam, log_scales, logit_opacities, features,
            alive, cam: Camera, cfg: RasterConfig = RasterConfig(),
-           binning: Binning | None = None, live_grad_cols=None, sq_col=None):
+           binning: Binning | None = None, live_grad_cols=None, sq_col=None,
+           means2d_offset=None):
     """Full differentiable render. Returns dict(image [F(+1), H, W],
-    final_T [H, W], radii [N], n_isect, n_overflow)."""
+    final_T [H, W], radii [N], n_isect, n_overflow). means2d_offset: see
+    project_gaussians; on the whole image its gradient comes back through
+    kernel B's du/dv and kernel C's columns 0-1."""
     opacity = torch.sigmoid(logit_opacities[:, 0])
-    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam)
+    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam,
+                             means2d_offset=means2d_offset)
     if binning is None:
         # an inline binning serves one composite, so it is not culled
         binning = bin_gaussians(
@@ -654,14 +664,16 @@ MAPPING_LIVE_COLS = tuple(range(10))
 def render_rgbd_sil(means_cam, quats_cam, log_scales, logit_opacities,
                     rgb_colors, alive, cam: Camera,
                     cfg: RasterConfig = RasterConfig(),
-                    binning: Binning | None = None, live_grad_cols=None):
+                    binning: Binning | None = None, live_grad_cols=None,
+                    means2d_offset=None):
     """Fused RGB + depth + silhouette + depth^2 render: composites
     [r, g, b, z] (+ z^2 synthesized in the kernel); the silhouette is
     1 - final_T. Returns (im [3,H,W], depth [1,H,W], sil [H,W],
     depth_sq [1,H,W], aux)."""
     feats = torch.cat([rgb_colors, means_cam[:, 2:3]], dim=-1)
     out = render(means_cam, quats_cam, log_scales, logit_opacities, feats,
-                 alive, cam, cfg, binning, live_grad_cols, sq_col=3)
+                 alive, cam, cfg, binning, live_grad_cols, sq_col=3,
+                 means2d_offset=means2d_offset)
     img = out["image"]
     return (img[0:3], img[3:4], 1.0 - out["final_T"], img[4:5],
             {"radii": out["radii"], "final_T": out["final_T"],
@@ -752,16 +764,18 @@ def tile_pixel_validity(cam: Camera) -> np.ndarray:
 
 def render_tiles_subset(means_cam, quats_cam, log_scales, logit_opacities,
                         rgb_colors, alive, sel, binning: Binning,
-                        cam: Camera, cfg: RasterConfig, live_grad_cols=None):
+                        cam: Camera, cfg: RasterConfig, live_grad_cols=None,
+                        means2d_offset=None):
     """Differentiable fused rgb + z (+ z^2) render of only the tiles in
     sel [T_sub] (tile ids). Returns (tiles_out [T_sub, P, 5] with channels
     (r, g, b, z, z^2), final_t [T_sub, P], aux). The backward adds the
     per-slot gradients into the table either by index (index_add_ of the
     live columns) or, when subset_uses_segreduce says so and the binning
     carries expansion positions, through the subset's expansion positions
-    and kernel C."""
+    and kernel C. means2d_offset: see project_gaussians."""
     opacity = torch.sigmoid(logit_opacities[:, 0])
-    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam)
+    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam,
+                             means2d_offset=means2d_offset)
     # frozen tile lists may reference Gaussians culled at this pose
     opacity = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
     table = _raster_table(

@@ -38,23 +38,15 @@ class LossConfig(NamedTuple):
     iso_target: float = 1.0
     calc_iso: bool = True
     knn_block: int = 8192
-    knn_method: str = "hash"   # only "hash" is ported
+    knn_method: str = "hash"   # "hash" (spatial hash) or "exact"
     hash_cap: int = 24
     hash_table_size: int = 0
-    iso_pool_size: int = 32768  # > 0 required (the pooled-KNN path)
+    # per-phase frozen KNN pool of this many queries; 0 = a fresh KNN per
+    # iteration (the reference's semantics)
+    iso_pool_size: int = 32768
     # silhouette-normalized tracking render (rgb, depth, depth^2 divided
     # by max(silhouette, 1e-6)), the reference's tracking default
     sil_norm_render: bool = False
-
-    def check_ported(self):
-        if self.calc_iso and not self.tracking:
-            if self.knn_method != "hash":
-                raise NotImplementedError(
-                    "LossConfig.knn_method='exact' is not ported yet")
-            if self.iso_pool_size <= 0:
-                raise NotImplementedError(
-                    "LossConfig.iso_pool_size=0 (fresh KNN per iteration) "
-                    "is not ported yet")
 
 
 class LossOutputs(NamedTuple):
@@ -215,17 +207,20 @@ def compute_loss_slots_subset(raw_sub, counts_sub, sel, cam_quat, cam_trans,
 
 
 def _isogs_terms(params: GaussianParams, alive, lcfg: LossConfig,
-                 iso_pool: IsoKnnPool | None, iso_sel, generator):
+                 iso_pool: IsoKnnPool | None, iso_sel, generator,
+                 iso_grid=None):
+    """Flat + iso regularizers; the iso loss reads `iso_pool` when given,
+    else finds its queries' neighbours afresh (on `iso_grid` by hash)."""
     loss_flat = flat_loss(params.log_scales, alive)
     if lcfg.calc_iso:
-        if iso_pool is None:
-            raise ValueError("the iso loss needs the phase's IsoKnnPool")
         loss_iso, mean_density = iso_surface_loss(
             params.means3d, params.unnorm_rotations, params.log_scales,
             params.logit_opacities, alive, iso_pool,
             sample_size=lcfg.iso_sample_size,
             target_saturation=lcfg.iso_target, sel=iso_sel,
-            generator=generator)
+            generator=generator, k=lcfg.iso_k, knn_method=lcfg.knn_method,
+            hash_cap=lcfg.hash_cap, hash_table_size=lcfg.hash_table_size,
+            knn_block=lcfg.knn_block, grid=iso_grid)
     else:
         loss_iso = torch.zeros((), device=alive.device)
         mean_density = torch.zeros((), device=alive.device)
@@ -237,7 +232,8 @@ def compute_loss_subsampled(params: GaussianParams, alive, cam_quat,
                             binning, cam: Camera, rcfg: RasterConfig,
                             lcfg: LossConfig,
                             iso_pool: IsoKnnPool | None = None, iso_sel=None,
-                            generator: torch.Generator | None = None
+                            generator: torch.Generator | None = None,
+                            means2d_offset=None, iso_grid=None
                             ) -> LossOutputs:
     """Mapping loss on a contiguous stripe of tile rows
     (mapping.tile_subsample > 1).
@@ -262,7 +258,7 @@ def compute_loss_subsampled(params: GaussianParams, alive, cam_quat,
     out, _, aux = render_tiles_subset(
         means_cam, quats_cam, params.log_scales, params.logit_opacities,
         params.rgb_colors, alive, sel, binning, cam, rcfg,
-        live_grad_cols=MAPPING_LIVE_COLS)
+        live_grad_cols=MAPPING_LIVE_COLS, means2d_offset=means2d_offset)
     im = out[..., 0:3]                                    # [Ts, P, 3]
     depth = out[..., 3]
     depth_sq = out[..., 4]
@@ -301,7 +297,7 @@ def compute_loss_subsampled(params: GaussianParams, alive, cam_quat,
     loss_im = 0.8 * l1 + 0.2 * (1.0 - ssim_mean)
 
     loss_flat, loss_iso, mean_density = _isogs_terms(
-        params, alive, lcfg, iso_pool, iso_sel, generator)
+        params, alive, lcfg, iso_pool, iso_sel, generator, iso_grid)
     wim = lcfg.w_im * loss_im
     wdepth = lcfg.w_depth * loss_depth
     wflat = lcfg.w_flat * loss_flat
@@ -317,10 +313,13 @@ def compute_loss_subsampled(params: GaussianParams, alive, cam_quat,
 def compute_loss(params: GaussianParams, alive, cam_quat, cam_trans, gt_im,
                  gt_depth, cam: Camera, rcfg: RasterConfig, lcfg: LossConfig,
                  binning=None, iso_pool: IsoKnnPool | None = None,
-                 iso_sel=None, generator: torch.Generator | None = None
-                 ) -> LossOutputs:
+                 iso_sel=None, generator: torch.Generator | None = None,
+                 means2d_offset=None, iso_grid=None) -> LossOutputs:
     """gt_im [3,H,W] in [0,1]; gt_depth [1,H,W] meters. Mapping draws the
-    iso loss's sample rows with `generator` unless `iso_sel` is given."""
+    iso loss's sample rows with `generator` unless `iso_sel` is given;
+    without `iso_pool` the iso loss finds its neighbours afresh (on
+    `iso_grid` by hash). means2d_offset: a zero [N, 2] leaf whose gradient
+    is d loss / d(u, v) (densification)."""
     tracking = lcfg.tracking
     means_cam, quats_cam = transform_to_frame(
         params.means3d, params.unnorm_rotations, cam_quat, cam_trans,
@@ -329,14 +328,14 @@ def compute_loss(params: GaussianParams, alive, cam_quat, cam_trans, gt_im,
     im, depth, silhouette, depth_sq, aux = render_rgbd_sil(
         means_cam, quats_cam, params.log_scales, params.logit_opacities,
         params.rgb_colors, alive, cam, rcfg, binning,
-        live_grad_cols=live_cols)
+        live_grad_cols=live_cols, means2d_offset=means2d_offset)
     loss_im, loss_depth, mask = _photometric_terms(
         im, depth, silhouette, depth_sq, gt_im, gt_depth, lcfg)
 
     z = torch.zeros((), device=im.device)
     if not tracking:
         loss_flat, loss_iso, mean_density = _isogs_terms(
-            params, alive, lcfg, iso_pool, iso_sel, generator)
+            params, alive, lcfg, iso_pool, iso_sel, generator, iso_grid)
         w_flat, w_iso = lcfg.w_flat, lcfg.w_iso
     else:
         loss_flat = loss_iso = mean_density = z

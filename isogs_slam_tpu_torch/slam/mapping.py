@@ -2,9 +2,14 @@
 
 Per phase: each sampled keyframe slot is binned once (margin-free tile
 lists, expansion order kept for the backward's segment reduce), the iso
-hash grid and KNN pool are built once. Per iteration: the mapping loss
-(L1 + SSIM colour, masked depth L1, IsoGS flat + iso), pruning, the opacity
-reset and one Adam step (eps 1e-15) on every Gaussian parameter.
+hash grid and KNN pool are built once (or the pipeline hands in a pool it
+keeps for several phases). Per iteration: the mapping loss (L1 + SSIM
+colour, masked depth L1, IsoGS flat + iso), optionally Inria clone / split
+densification from the loss's gradient in (u, v) (slam/densify.py),
+pruning, the opacity reset and one Adam step (eps 1e-15) on every Gaussian
+parameter. Tile lists and the hash grid stay frozen for the phase, so rows
+cloned or split mid-phase get render gradients from the next phase on; the
+Adam state is capacity-shaped, so they start with zero moments.
 
 Opt-in fast mode (tile_subsample > 1): an iteration renders the loss on one
 full-width stripe of tile rows (a core of ~tiles_y / sub rows and a halo
@@ -21,7 +26,7 @@ import torch
 from ..core import optim
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams, MapState, prune
-from ..ops.iso_loss import build_iso_knn_pool
+from ..ops.iso_loss import IsoKnnPool, build_iso_knn_pool
 from ..ops.rasterize import (RasterConfig, bin_gaussians,
                              bin_gaussians_batched, image_to_tiles,
                              project_gaussians, subset_uses_segreduce,
@@ -55,9 +60,9 @@ class MappingConfig(NamedTuple):
     prune: PruneConfig
     eps: float = 1e-15
     bin_margin_px: float = 0.0
-    # Inria clone/split densification during mapping: not ported yet, a
-    # config that sets it raises NotImplementedError
+    # Inria clone / split densification during mapping (slam/densify.py)
     use_densification: bool = False
+    densify: tuple | None = None   # DensifyConfig when enabled
     # fast mode (1 = off): the loss of an iteration is rendered on a
     # 1/tile_subsample full-width stripe of tile rows
     # (losses.compute_loss_subsampled)
@@ -83,12 +88,6 @@ class MappingConfig(NamedTuple):
     def lrs(self) -> tuple:
         return (self.lr_means3d, self.lr_rgb_colors, self.lr_unnorm_rotations,
                 self.lr_logit_opacities, self.lr_log_scales)
-
-    def check_ported(self):
-        if self.use_densification:
-            raise NotImplementedError(
-                "MappingConfig.use_densification is not ported to the "
-                "PyTorch package yet")
 
 
 def stripe_shape(gy: int, gx: int, sub: int):
@@ -159,27 +158,59 @@ def _prune_mask(params: GaussianParams, alive, scene_radius, it: int,
     return remove & alive
 
 
+@torch.no_grad()
+def build_phase_iso_pool(params: GaussianParams, alive, lcfg: LossConfig,
+                         generator: torch.Generator | None = None,
+                         q_idx=None) -> IsoKnnPool:
+    """A mapping phase's iso-KNN pool built on its own (hash grid, when
+    the KNN is the hash, and one batched KNN), for a pipeline that keeps
+    one pool for several phases (mapping.iso_pool_refresh_phases > 1):
+    both queries and neighbours are alive-masked when the loss reads
+    them, so a kept pool only leaves rows added since out of the sample."""
+    grid = None
+    if lcfg.knn_method == "hash":
+        cell = default_cell_size(params.log_scales, alive)
+        grid = build_hash_grid(params.means3d, alive, cell,
+                               lcfg.hash_table_size)
+    return build_iso_knn_pool(
+        params.means3d, params.log_scales, alive, lcfg.iso_pool_size,
+        lcfg.iso_k, hash_cap=lcfg.hash_cap,
+        hash_table_size=lcfg.hash_table_size, grid=grid, q_idx=q_idx,
+        generator=generator, knn_method=lcfg.knn_method,
+        knn_block=lcfg.knn_block)
+
+
 def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
               iter_slots, cam: Camera, rcfg: RasterConfig, lcfg: LossConfig,
               mcfg: MappingConfig, generator: torch.Generator | None = None,
-              pool_q_idx=None, iso_sels=None, stripe_idx=None):
+              pool_q_idx=None, iso_sels=None, stripe_idx=None, iso_pool=None,
+              split_noise=None):
     """One mapping phase of mcfg.num_iters iterations.
 
     kf_colors_u8 [S, H, W, 3] uint8, kf_depths [S, H, W] f32, kf_quats
     [S, 4], kf_transl [S, 3]: the keyframe window on the map's device;
     iter_slots: the keyframe slot of each iteration (host ints). The
     random draws — the iso pool's query rows, each iteration's iso
-    sample and, in the fast mode, each stripe iteration's stripe index —
-    are `pool_q_idx`, `iso_sels[i]` and `stripe_idx[i]` when given, else
-    drawn with `generator`.
+    sample (pool rows, or with lcfg.iso_pool_size = 0 the query rows), in
+    the fast mode each stripe iteration's stripe index and, with
+    densification, the split noise of the iterations that densify — are
+    `pool_q_idx`, `iso_sels[i]`, `stripe_idx[i]` and `split_noise[i]`
+    ([num_to_split_into, C, 3] normals) when given, else drawn with
+    `generator`. `iso_pool`: a prebuilt pool (build_phase_iso_pool) used
+    instead of one built here.
 
-    Returns (new MapState, loss_log [num_iters, N_LOG], bin_stats [3] =
-    [true-candidate intersections dropped by the per-tile cap, total and
-    max intersections over the binned slots])."""
+    Returns (new MapState, loss_log [num_iters, N_LOG], phase stats: [true-
+    candidate intersections dropped by the per-tile cap, total and max
+    intersections over the binned slots], and with densification three
+    more: rows cloned, rows split and rows dropped at capacity)."""
     assert not lcfg.tracking
-    mcfg.check_ported()
-    lcfg.check_ported()
     pc = mcfg.prune
+    dens = mcfg.densify if mcfg.use_densification else None
+    if mcfg.use_densification and dens is None:
+        raise ValueError("MappingConfig.use_densification needs "
+                         "MappingConfig.densify (a DensifyConfig)")
+    if dens is not None:
+        from .densify import accumulate_mean2d_gradient, densify_step
     iter_slots = [int(s) for s in iter_slots]
     p0 = GaussianParams(*[p.detach() for p in state.params])
     alive0 = state.alive
@@ -229,15 +260,20 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
             sum(b.n_true_overflow for b in bins.values()),
             n_isect.sum(), n_isect.max()])
 
-        iso_pool = None
-        if lcfg.calc_iso:
+        # the iso hash grid once per phase (Gaussian drift within a phase
+        # is far below the cell size); none when a prebuilt pool is given
+        iso_grid = None
+        if iso_pool is None and lcfg.calc_iso and lcfg.knn_method == "hash":
             cell = default_cell_size(p0.log_scales, alive0)
-            grid = build_hash_grid(p0.means3d, alive0, cell,
-                                   lcfg.hash_table_size)
+            iso_grid = build_hash_grid(p0.means3d, alive0, cell,
+                                       lcfg.hash_table_size)
+        if iso_pool is None and lcfg.calc_iso and lcfg.iso_pool_size > 0:
             iso_pool = build_iso_knn_pool(
                 p0.means3d, p0.log_scales, alive0, lcfg.iso_pool_size,
-                lcfg.iso_k, hash_cap=lcfg.hash_cap, grid=grid,
-                q_idx=pool_q_idx, generator=generator)
+                lcfg.iso_k, hash_cap=lcfg.hash_cap,
+                hash_table_size=lcfg.hash_table_size, grid=iso_grid,
+                q_idx=pool_q_idx, generator=generator,
+                knn_method=lcfg.knn_method, knn_block=lcfg.knn_block)
 
         if n_sub:
             # the phase's keyframes in the compositor's tile layout, once;
@@ -256,7 +292,7 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
                                          rows_core, rows_w, dev)
                        for si in set(int(i) for i in stripe_idx[:n_sub])}
 
-    def loss_exact(leaves, alive, slot, it):
+    def loss_exact(leaves, m2d, alive, slot, it):
         gt_im = (kf_colors_u8[slot].to(torch.float32) / 255.0
                  ).permute(2, 0, 1)
         return compute_loss(
@@ -264,16 +300,16 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
             kf_depths[slot][None], cam, rcfg, lcfg, binning=bins[slot],
             iso_pool=iso_pool,
             iso_sel=None if iso_sels is None else iso_sels[it],
-            generator=generator)
+            generator=generator, means2d_offset=m2d, iso_grid=iso_grid)
 
-    def loss_sub(leaves, alive, slot, it):
+    def loss_sub(leaves, m2d, alive, slot, it):
         sel, core = stripes[int(stripe_idx[it])]
         return compute_loss_subsampled(
             leaves, alive, kf_quats[slot], kf_transl[slot],
             gt_tiles_all[slot][sel], valid_px_full[sel], core, sel,
             bins[slot], cam, rcfg, lcfg, iso_pool=iso_pool,
             iso_sel=None if iso_sels is None else iso_sels[it],
-            generator=generator)
+            generator=generator, means2d_offset=m2d, iso_grid=iso_grid)
 
     lrs = mcfg.lrs()
     # log(0.01 / 0.99) in f32, as the reference computes it
@@ -281,14 +317,28 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
     st = state
     opt = optim.init(state.params, lazy=subsample and mcfg.lazy_adam)
     logs = []
+    dens_counts = torch.zeros(3, dtype=torch.int64, device=dev)
     for it, slot in enumerate(iter_slots):
         leaves = GaussianParams(*[p.detach().requires_grad_(True)
                                   for p in st.params])
+        # the zero (u, v) offset whose gradient drives densification
+        m2d = (torch.zeros((st.capacity, 2), device=dev, requires_grad=True)
+               if dens is not None else None)
         with torch.enable_grad():
             out = (loss_sub if it < n_sub else loss_exact)(
-                leaves, st.alive, slot, it)
-            grads = torch.autograd.grad(out.loss, leaves)
+                leaves, m2d, st.alive, slot, it)
+            grads = torch.autograd.grad(
+                out.loss, tuple(leaves) + ((m2d,) if m2d is not None
+                                           else ()))
         with torch.no_grad():
+            if dens is not None:
+                st = accumulate_mean2d_gradient(st, out.radii, grads[-1])
+                st, opt, c = densify_step(
+                    st, opt, it, dens, generator=generator,
+                    split_noise=None if split_noise is None
+                    else split_noise[it])
+                dens_counts += c
+                grads = grads[:-1]
             # seen / max_2D_radius bookkeeping (splatam.py:751-753)
             radii = out.radii.to(st.max_2d_radius.dtype)
             max_r = torch.where(out.radii > 0,
@@ -298,7 +348,7 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
             # prune before the optimizer step (splatam.py:1461-1467)
             st = prune(st, _prune_mask(st.params, st.alive,
                                        st.scene_radius, it, pc))
-            params = GaussianParams(*[p.detach() for p in leaves])
+            params = st.params
             if pc.reset_opacities and it > 0 and \
                     it % max(pc.reset_opacities_every, 1) == 0:
                 # the parameter is replaced and its moments zeroed
@@ -316,4 +366,6 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
             logs.append(torch.stack([out.loss, out.im, out.depth, out.flat,
                                      out.iso, out.mean_density,
                                      out.mask_frac]).detach())
+    if dens is not None:
+        bin_stats = torch.cat([bin_stats, dens_counts])
     return st, torch.stack(logs), bin_stats

@@ -108,6 +108,26 @@ def _dataset_from_config(config, height, width, device):
         num_frames=dc.get("num_frames", -1), seed=config.get("seed", 0))
 
 
+def primary_device(config) -> torch.device:
+    """config["primary_device"] ("cuda" unless set): "cuda" or "cpu"; any
+    other (a JAX config's "tpu") is an error."""
+    want = str(config.get("primary_device", "cuda"))
+    if want.split(":")[0] not in ("cuda", "cpu"):
+        raise ValueError(f"primary_device={want!r}: this package runs on "
+                         f"'cuda' or, when asked, on 'cpu'")
+    return resolve_device(want)
+
+
+def _to_chw_frame(color, depth, device):
+    """Dataset (H,W,3) 0..255 + (H,W,1) -> [3,H,W] 0..1, [1,H,W] on
+    `device`."""
+    im = torch.as_tensor(np.asarray(color, np.float32),
+                         device=device).permute(2, 0, 1) / 255.0
+    d = torch.as_tensor(np.asarray(depth, np.float32),
+                        device=device).permute(2, 0, 1)
+    return im.contiguous(), d.contiguous()
+
+
 def _loss_cfg_tracking(config) -> LossConfig:
     t = config["tracking"]
     w = t["loss_weights"]
@@ -157,14 +177,33 @@ def _mapping_cfg(config) -> MappingConfig:
             "final_removal_opacity_threshold", 0.005),
         reset_opacities=pd.get("reset_opacities", False),
         reset_opacities_every=pd.get("reset_opacities_every", 500))
+    use_dens = m.get("use_gaussian_splatting_densification", False)
+    dens = None
+    if use_dens:
+        from .densify import DensifyConfig
+        dd = m.get("densify_dict", {})
+        dens = DensifyConfig(
+            start_after=dd.get("start_after", 500),
+            remove_big_after=dd.get("remove_big_after", 3000),
+            stop_after=dd.get("stop_after", 5000),
+            densify_every=dd.get("densify_every", 100),
+            grad_thresh=dd.get("grad_thresh", 0.0002),
+            num_to_split_into=dd.get("num_to_split_into", 2),
+            removal_opacity_threshold=dd.get(
+                "removal_opacity_threshold", 0.005),
+            final_removal_opacity_threshold=dd.get(
+                "final_removal_opacity_threshold", 0.005),
+            reset_opacities_every=dd.get("reset_opacities_every", 3000),
+            # off unless the densify_dict asks (the DensifyConfig default
+            # is on, as the offline trainer wants it)
+            reset_opacities=dd.get("reset_opacities", False))
     return MappingConfig(
         num_iters=m["num_iters"], lr_means3d=lrs["means3D"],
         lr_rgb_colors=lrs["rgb_colors"],
         lr_unnorm_rotations=lrs["unnorm_rotations"],
         lr_logit_opacities=lrs["logit_opacities"],
         lr_log_scales=lrs["log_scales"], prune=prune,
-        use_densification=m.get("use_gaussian_splatting_densification",
-                                False),
+        use_densification=use_dens, densify=dens,
         tile_subsample=int(m.get("tile_subsample", 1)),
         tile_cycle=bool(m.get("tile_cycle", True)),
         lazy_adam=bool(m.get("lazy_adam", False)),
@@ -202,22 +241,17 @@ def _tracking_cfg(config) -> TrackingConfig:
         cross_frame_margin_px=t.get("cross_frame_margin_px", 16.0))
 
 
-def _check_ported(config, lcfg_map, mcfg):
-    """Raise NotImplementedError, naming the knob, for every configuration
-    this package does not run yet; none is silently ignored. Every knob
-    of the rasterizer and the tracker runs."""
-    mcfg.check_ported()
-    lcfg_map.check_ported()
+def _check_ported(config):
+    """Raise NotImplementedError, naming the knob, for a configuration this
+    package does not run yet (multi-device mapping or tracking); none is
+    silently ignored. Every knob of the rasterizer, the tracker and the
+    mapper runs."""
     par = config.get("parallel", {})
     for knob in ("map_views", "track_tiles"):
         if int(par.get(knob, 0)) > 1:
             raise NotImplementedError(
                 f"parallel.{knob} > 1 (multi-device) is not ported to the "
                 f"PyTorch package yet")
-    if int(config["mapping"].get("iso_pool_refresh_phases", 1)) > 1:
-        raise NotImplementedError(
-            "mapping.iso_pool_refresh_phases > 1 (the cross-phase iso pool) "
-            "is not ported to the PyTorch package yet")
 
 
 class SLAM:
@@ -233,12 +267,7 @@ class SLAM:
     def __init__(self, config: dict, dataset=None):
         self.config = inject_defaults(config)
         cfg = self.config
-        want_dev = str(cfg["primary_device"])
-        if want_dev.split(":")[0] not in ("cuda", "cpu"):
-            raise ValueError(
-                f"primary_device={want_dev!r}: this package runs on 'cuda' "
-                f"or, when asked, on 'cpu'")
-        self.device = resolve_device(want_dev)
+        self.device = primary_device(cfg)
         from .experimental import warn_experimental
         warn_experimental(cfg)
 
@@ -263,7 +292,7 @@ class SLAM:
         self.lcfg_map = _loss_cfg_mapping(cfg)
         self.tcfg = _tracking_cfg(cfg)
         self.mcfg = _mapping_cfg(cfg)
-        _check_ported(cfg, self.lcfg_map, self.mcfg)
+        _check_ported(cfg)
 
         self.output_dir = os.path.join(cfg["workdir"], cfg["run_name"])
         self.eval_dir = os.path.join(self.output_dir, "eval")
@@ -350,6 +379,9 @@ class SLAM:
         self.events = {"max_per_tile": [], "isect_cap": [], "capacity": [],
                        "compactions": []}
         self._frame = 0
+        # cross-phase iso-KNN pool (_phase_iso_pool) and its age in phases
+        self._iso_pool = None
+        self._iso_pool_age = 0
         self.online_eval = None
         self._compact_every = cfg.get("compact_every", 50)
         # cross-frame tracking tile-list cache; invalidated on every map
@@ -368,13 +400,7 @@ class SLAM:
             torch.cuda.synchronize(self.device)
 
     def _to_chw_frame(self, color, depth):
-        """Dataset (H,W,3) 0..255 + (H,W,1) -> device [3,H,W] 0..1,
-        [1,H,W]."""
-        im = torch.as_tensor(np.asarray(color, np.float32),
-                             device=self.device).permute(2, 0, 1) / 255.0
-        d = torch.as_tensor(np.asarray(depth, np.float32),
-                            device=self.device).permute(2, 0, 1)
-        return im.contiguous(), d.contiguous()
+        return _to_chw_frame(color, depth, self.device)
 
     def _pose(self, time_idx):
         q = self.cam_rots[:, time_idx]
@@ -392,8 +418,35 @@ class SLAM:
         if self._track_bins is not None:
             self._track_bins.invalidate()
 
+    def _invalidate_iso_pool(self):
+        """Row indices changed (compaction / growth): a kept cross-phase
+        iso pool would point at other Gaussians."""
+        self._iso_pool = None
+        self._iso_pool_age = 0
+
+    def _phase_iso_pool(self):
+        """The iso-KNN pool kept across mapping.iso_pool_refresh_phases
+        phases (1, the default: map_frame builds one every phase, and this
+        returns None). Rows are alive-masked when the loss reads them, so
+        a kept pool only leaves newly added rows out of the sample until
+        the next rebuild."""
+        refresh = int(self.config["mapping"].get("iso_pool_refresh_phases",
+                                                 1))
+        lcfg = self.lcfg_map
+        if refresh <= 1 or not (lcfg.calc_iso and lcfg.iso_pool_size > 0):
+            return None
+        if self._iso_pool is None or self._iso_pool_age >= refresh:
+            from .mapping import build_phase_iso_pool
+            self._iso_pool = build_phase_iso_pool(
+                self.state.params, self.state.alive, lcfg,
+                generator=self.gen)
+            self._iso_pool_age = 0
+        self._iso_pool_age += 1
+        return self._iso_pool
+
     def _compact(self):
         self._map_changed()
+        self._invalidate_iso_pool()
         self.state = G.compact(self.state)
         self.events["compactions"].append(self._frame)
 
@@ -412,6 +465,7 @@ class SLAM:
                                            2 * cap), self.granule)
             print(f"[capacity] {cap} -> {new_cap} (hwm {used})")
             self._map_changed()
+            self._invalidate_iso_pool()
             self.state = G.grow_capacity(self.state, new_cap)
             self.events["capacity"].append((self._frame, cap, new_cap))
 
@@ -613,8 +667,16 @@ class SLAM:
         self.state, log, bin_stats = map_frame(
             self.state, self.kf.colors, self.kf.depths, self.kf.quats,
             self.kf.trans, iter_slots, self.cam, self.rcfg, self.lcfg_map,
-            self.mcfg, generator=self.gen)
+            self.mcfg, generator=self.gen, iso_pool=self._phase_iso_pool())
         self._check_tile_cap(bin_stats)
+        if bin_stats.shape[0] > 3:
+            n_clone, n_split, dropped = (int(x) for x in bin_stats[3:6])
+            self.stats.setdefault("densify_counts", []).append(
+                (time_idx, n_clone, n_split, dropped))
+            if n_clone or n_split or dropped:
+                print(f"[densify] frame {time_idx}: {n_clone} cloned, "
+                      f"{n_split} split, {dropped} rows dropped at capacity "
+                      f"{self.state.capacity}")
         return log
 
     def _check_tile_cap(self, bin_stats):

@@ -97,7 +97,8 @@ def test_full_width_fast_configs_load():
     """The full-width fast configurations load through the CLI's loader and
     set the levers of the reference's presets on this package's full_res
     config."""
-    from isogs_slam_tpu_torch.slam.pipeline import (_mapping_cfg,
+    from isogs_slam_tpu_torch.slam.pipeline import (_check_ported,
+                                                    _mapping_cfg,
                                                     _tracking_cfg)
     from isogs_slam_tpu_torch.slam.config import inject_defaults
     for path, polish in zip(FULL_RES_FAST, (0, 4)):
@@ -107,4 +108,29 @@ def test_full_width_fast_configs_load():
         assert _tracking_cfg(cfg).tile_subsample == 4
         m = _mapping_cfg(cfg)
         assert (m.tile_subsample, m.exact_polish_iters) == (4, polish)
-        m.check_ported()
+        _check_ported(cfg)          # nothing of it raises
+
+
+def test_fullres_postopt_config_renders_the_slam_run_frames():
+    """The port's post_splatam_opt_fullres.py loads the run of its
+    full_res.py: the same run directory and scene-generator inputs (dataset,
+    seed, trajectory step, image size, frame count), so the post-opt ground
+    truth is the SLAM run's frames; the offline configs run on the card."""
+    cfg_dir = os.path.join(ROOT, "isogs_slam_tpu_torch", "configs",
+                           "synthetic")
+    slam = splatam.load_experiment_config(os.path.join(cfg_dir,
+                                                       "full_res.py"))
+    post = splatam.load_experiment_config(
+        os.path.join(cfg_dir, "post_splatam_opt_fullres.py"))
+    assert (post["workdir"], post["data"]["param_run_name"]) == (
+        slam["workdir"], slam["run_name"])
+    assert post["seed"] == slam["seed"]
+    for key in ("dataset_name", "synthetic_traj_step",
+                "desired_image_height", "desired_image_width",
+                "num_frames"):
+        assert post["data"][key] == slam["data"][key], key
+    for name in ("gaussian_splatting.py", "post_splatam_opt.py",
+                 "post_splatam_opt_fullres.py"):
+        cfg = splatam.load_experiment_config(os.path.join(cfg_dir, name))
+        assert cfg["primary_device"] == "cuda", name
+        assert "train" in cfg and "num_iters_mapping" in cfg["train"]

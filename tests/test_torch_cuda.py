@@ -347,3 +347,82 @@ def test_subset_render_routes_agree(dev, scatter_bf16):
         for a, b in zip(ref_g, gs):
             assert float((a - b).abs().max()) / float(a.abs().max()) < tol, \
                 route
+
+
+def _m2d_scene(n=1500, seed=0):
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    means[:, 2] += 2.5
+    arrs = [means, rng.normal(0, 1, (n, 4)),
+            np.log(rng.uniform(0.02, 0.1, (n, 3))),
+            rng.uniform(-2, 3, (n, 1)), rng.uniform(0, 1, (n, 3))]
+    alive = np.ones(n, bool)
+    alive[-100:] = False
+    return arrs, alive
+
+
+@pytest.mark.parametrize("subset", [False, True],
+                         ids=["whole_image", "tile_subset"])
+def test_means2d_offset_gradient_cuda_matches_cpu(dev, subset):
+    """d loss / d(u, v) of a zero means2d_offset: kernel B's du/dv carried
+    back per Gaussian through kernel C's columns 0-1 (whole image, inline
+    binning as the offline loss renders) or index_add_ (a tile subset), on
+    the card against the plain versions on the CPU; 1e-4 of its max."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.rasterize import (
+        MAPPING_LIVE_COLS, RasterConfig, bin_gaussians, project_gaussians,
+        render_rgbd_sil, render_tiles_subset)
+    arrs, alive = _m2d_scene()
+    n = alive.shape[0]
+    cam = Camera(width=96, height=80, fx=80.0, fy=80.0, cx=47.5, cy=39.5)
+    cfg = RasterConfig(max_per_tile=512, grad_scatter_bf16=False)
+    sel = [0, 3, 7, 8, 13, 22, 29]
+
+    def run(device):
+        ps = [torch.tensor(a, dtype=torch.float32, device=device)
+              for a in arrs]
+        al = torch.as_tensor(alive, device=device)
+        m2d = torch.zeros((n, 2), device=device, requires_grad=True)
+        if subset:
+            proj = project_gaussians(ps[0], ps[1], ps[2], al, cam)
+            b = bin_gaussians(proj, cam, cfg)
+            out, ft, _ = render_tiles_subset(
+                *ps, al, torch.tensor(sel, device=device), b, cam, cfg,
+                live_grad_cols=MAPPING_LIVE_COLS, means2d_offset=m2d)
+            loss = (out ** 2).sum() + ft.sum()
+        else:
+            im, d, s, dsq, _ = render_rgbd_sil(*ps, al, cam, cfg,
+                                               means2d_offset=m2d)
+            loss = (im ** 2).sum() + d.sum() + 0.5 * s.sum() + dsq.sum()
+        (g,) = torch.autograd.grad(loss, m2d)
+        return g.cpu()
+
+    g_cpu = run("cpu")
+    _cuda.reset_launches()
+    g_dev = run(dev)
+    torch.cuda.synchronize()
+    assert float(g_cpu.abs().max()) > 0
+    assert float((g_cpu - g_dev).abs().max()) < 1e-4 * float(
+        g_cpu.abs().max())
+    launched = dict(_cuda.LAUNCHES)
+    assert any(k.startswith("composite_bwd") for k in launched)
+    assert ("segreduce" in launched) != subset
+
+
+def test_knn_blocked_cuda_matches_cpu(dev):
+    """The exact streaming KNN on the card: the CPU's neighbour sets (no
+    ties among continuous points) and distances to 1e-6, dead rows never
+    chosen."""
+    from isogs_slam_tpu_torch.ops.iso_loss import knn_blocked
+    rng = np.random.default_rng(3)
+    pts = torch.tensor(rng.uniform(-1, 1, (5000, 3)), dtype=torch.float32)
+    q = torch.tensor(rng.uniform(-1, 1, (700, 3)), dtype=torch.float32)
+    valid = torch.tensor(rng.uniform(size=5000) > 0.1)
+    d_c, i_c = knn_blocked(q, pts, valid, 16, 1024)
+    d_g, i_g = knn_blocked(q.to(dev), pts.to(dev), valid.to(dev), 16, 1024)
+    i_g = i_g.cpu()
+    for a, b in zip(i_c.tolist(), i_g.tolist()):
+        assert set(a) == set(b)
+    assert bool(valid[i_g].all())
+    assert float((torch.sort(d_c, 1).values
+                  - torch.sort(d_g.cpu(), 1).values).abs().max()) < 1e-6

@@ -50,19 +50,26 @@ def test_port_imports_without_image_and_plot_libraries():
                            device="cpu", desired_height=32, desired_width=48,
                            num_frames=2)
         assert len(ds) == 2 and ds.png_depth_scale == 6553.5
-        for name in ("tum", "icl", "scannet", "azure", "record3d",
-                     "nerfcapture"):
+        # every file loader is registered and reaches its own config or
+        # metadata parsing (an empty camera block, or no files at all)
+        for name in ("replica", "replicav2", "tum", "icl", "scannet",
+                     "azure", "record3d", "realsense", "ai2thor"):
             try:
-                D.get_dataset({"dataset_name": name}, "", "s")
-            except NotImplementedError as e:
-                assert name in str(e)
+                D.get_dataset({"dataset_name": name, "camera_params": {}},
+                              "/nonexistent", "s")
+            except KeyError:
+                pass
+            except ValueError as e:      # icl: no *.gt.sim pose file
+                assert name == "icl" and "gt.sim" in str(e), (name, e)
             else:
                 raise AssertionError(name)
-        try:
-            D.get_dataset({"dataset_name": "replica", "camera_params": {}},
-                          "", "s")
-        except KeyError:
-            pass        # reaches the loader's own config parsing
+        for name in ("nerfcapture", "scannetpp"):
+            try:
+                D.get_dataset({"dataset_name": name}, "/nonexistent", "s")
+            except FileNotFoundError:
+                pass
+            else:
+                raise AssertionError(name)
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
