@@ -23,7 +23,9 @@ before the result line):
      torch.segment_reduce;
   3b. "subset route": render_tiles_subset's two backward routes (index_add_
      of the rows against expansion scatter + segment reduce) at the
-     stripe's shape and at a quarter of it: same gradients, both times;
+     stripe's shape and at a quarter of it: same gradients, both times,
+     and the route "auto" takes at each (kernel C from 256 Ki rows, the
+     reference's crossover: the stripe, not the quarter);
   3c. "cull": tile_cull and tight_rect on the full-width scene give the
      plain binning's image and gradients; intersection counts, summed
      tile counts and the compositing kernels' times with and without;
@@ -55,6 +57,23 @@ before the result line):
      the rows' |d loss / d(u, v)| at this size, then eval): fails unless it
      densified and its loss fell, on non-finite values or PSNR <= 25 dB;
   5e. novel views (scripts.eval_novel_view.main on 5c's checkpoint);
+  5f. the mesh path on 5c's checkpoint: scripts.extract_mesh_fast.main
+     (--device cuda, 2 cm voxel, iso 1.0, the per-block lists starting at
+     4096 candidates), the density pass timed alone
+     (first and second call) with its grid held against a float64
+     evaluation of the same truncated sum on 16 sampled non-empty blocks
+     (fails above mesh.density.DENSITY_F64_RTOL of the grid's max), the
+     marching and largest-component routes (native library, built with
+     native/build.sh at first use when g++ is there, else numpy) and
+     times, a ground-truth room from tools.synth_gt_mesh, and
+     scripts.eval_mesh_geometry.main --render-eval on 4 poses (fails on an
+     empty or non-finite mesh, accuracy >= 5 cm or a z-buffer footprint
+     warning), then tools.profile_density at 500,000 Gaussians; the mesh
+     path launches none of the kernels (the render eval's dataset frames
+     are rendered with the compositing forward, not counted);
+  after the fast pipeline path, a second run of it with the same seed:
+     both ATEs and their difference (kernel C carries the mapping
+     stripe's backward; the launch counts must show it);
   6. the `kernels` JSON line;
   7. the result line {"ok": true, "device": {...}}.
 
@@ -334,8 +353,9 @@ def subset_routes(inputs, ctx, cam, capacity, rcfg, dev):
     the intersection capacity this configuration starts with and at the
     one a run grows to."""
     import torch
-    from isogs_slam_tpu_torch.ops.rasterize import (_expansion_reduce,
-                                                    _index_add_rows)
+    from isogs_slam_tpu_torch.ops.rasterize import (
+        SUBSET_SEGREDUCE_MIN_ROWS, _expansion_reduce, _index_add_rows,
+        subset_uses_segreduce)
     t0 = time.perf_counter()
     st = ctx["state"]
     K = rcfg.max_per_tile
@@ -375,6 +395,14 @@ def subset_routes(inputs, ctx, cam, capacity, rcfg, dev):
               f"{float(got['scatter'][0]) == float(got['segreduce'][0])}")
         if not (rel < 2 ** -6 and rel32 < 2 ** -7):
             raise AssertionError(f"the subset routes disagree ({name})")
+        auto = subset_uses_segreduce(rcfg._replace(bwd_mode="auto"),
+                                     sel.shape[0])
+        print(f"[subset route] {name}: \"auto\" takes "
+              f"{'expansion scatter + kernel C' if auto else 'index_add_'}"
+              f" at {rows} rows (crossover {SUBSET_SEGREDUCE_MIN_ROWS})")
+        if auto != (name == "stripe"):
+            raise AssertionError(f"\"auto\" takes the wrong route at the "
+                                 f"{name}'s {rows} rows")
         print(f"[subset route] {name}: whole render forward + backward "
               f"scatter {got['scatter_ms']:.3f} ms, segreduce "
               f"{got['segreduce_ms']:.3f} ms")
@@ -798,6 +826,266 @@ def nvs_path(root, ckpt_path, tmp):
     return launches
 
 
+class _Tee:
+    """A stdout that also keeps what was written (to read warnings)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, x):
+        self.text.append(x)
+        return self.out.write(x)
+
+    def flush(self):
+        self.out.flush()
+
+
+VOXEL, ISO, Z_CAP = 0.02, 1.0, 8    # the CLIs' defaults; the z-buffer cap
+# the per-block list length the density pass starts from: the CLI's
+# default of 256 doubles 6 times to 16,384, and the post-opt map (~0.9 M
+# Gaussians in 60 non-empty blocks) needs 32,768: from 256 the pass drops
+# 419,345 candidates there and the grid is 0.81 of its max off float64
+MAX_PER_BLOCK = 4096
+
+
+def _mesh_f64_check(dens, spec, params, n_blocks=16, n_voxels=256):
+    """The card's density grid against mesh.density.density_reference (the
+    same truncated sum in float64) at n_voxels sampled voxels of each of
+    n_blocks sampled non-empty blocks. Returns (max abs error / grid max,
+    seconds, non-empty blocks)."""
+    import numpy as np
+    from isogs_slam_tpu_torch.mesh import density as D
+    t0 = time.perf_counter()
+    B, bd = spec.block, spec.block_dims
+    full = np.zeros([b * B for b in bd], np.float32)
+    full[: dens.shape[0], : dens.shape[1], : dens.shape[2]] = dens
+    bmax = full.reshape(bd[0], B, bd[1], B, bd[2], B).max(axis=(1, 3, 5))
+    rng = np.random.default_rng(0)
+    live = np.argwhere(bmax > 0)
+    pick = live[rng.choice(len(live), min(n_blocks, len(live)),
+                           replace=False)]
+    err = 0.0
+    for b in pick:
+        lo = b * B
+        hi = np.minimum(lo + B, spec.dims)
+        ii = np.stack([rng.integers(lo[k], hi[k], n_voxels)
+                       for k in range(3)], -1)
+        pos = np.asarray(spec.origin) + ii * np.asarray(spec.spacing)
+        ref = D.density_reference(
+            pos, params["means3D"], params["log_scales"],
+            params["unnorm_rotations"], params["logit_opacities"],
+            max(1e-5, VOXEL / 2))
+        err = max(err, float(np.abs(dens[tuple(ii.T)] - ref).max()))
+    return err / float(dens.max()), time.perf_counter() - t0, len(live)
+
+
+def _render_eval_size(ds, frames, verts, gt_verts):
+    """(image scale, GT subdivision, nearest depth, fx) for the render
+    eval: a marching face spans at most a voxel cell's diagonal,
+    sqrt(3) x 2 cm, so the images are scaled down until such a face at the
+    nearest depth any rendered pose sees (the mesh's or the ground
+    truth's), stretched by up to 1.5 off the optical axis, stays within
+    Z_CAP - 2 pixels (the z-buffer's per-face window); the ground-truth
+    walls are cut into squares for which the same holds."""
+    import numpy as np
+    z_near, fx = np.inf, None
+    for fi in frames:
+        _, depth, intr, pose = ds[fi]
+        h, w = depth.shape[:2]
+        fx = float(intr[0, 0])
+        w2c = np.linalg.inv(np.asarray(pose, np.float64))
+        for v in (verts, gt_verts):
+            c = v @ w2c[:3, :3].T + w2c[:3, 3]
+            z = c[:, 2]
+            zs = np.where(z > 1e-3, z, 1e-3)
+            u = fx * c[:, 0] / zs + intr[0, 2]
+            y = intr[1, 1] * c[:, 1] / zs + intr[1, 2]
+            seen = ((z > 0.01) & (u > -8) & (u < w + 8) & (y > -8)
+                    & (y < h + 8))
+            if seen.any():
+                z_near = min(z_near, float(z[seen].min()))
+    px = Z_CAP - 2
+    scale = min(1.0, px * z_near / (1.5 * fx * np.sqrt(3) * VOXEL))
+    subdiv = int(np.ceil(1.5 * fx * scale * 4.0 * np.sqrt(2)
+                         / (z_near * px)))
+    return scale, subdiv, z_near, fx
+
+
+def mesh_path(root, ckpt_path, tmp):
+    """Phase 5f: the mesh path on 5c's checkpoint (see the module
+    docstring). Raises on a failed check."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch import native_ext
+    from isogs_slam_tpu_torch.io.checkpoints import load_checkpoint
+    from isogs_slam_tpu_torch.mesh import density as D
+    from isogs_slam_tpu_torch.mesh.marching import (largest_component,
+                                                    marching_tetrahedra)
+    from isogs_slam_tpu_torch.mesh.meshio import read_ply
+    from isogs_slam_tpu_torch.scripts import (eval_mesh_geometry,
+                                              extract_mesh_fast)
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    from isogs_slam_tpu_torch.slam.pipeline import _dataset_from_config
+    from isogs_slam_tpu_torch.tools import profile_density, synth_gt_mesh
+    t0 = time.perf_counter()
+    lib = os.path.join(root, "native", "build_out", "libisogs_native.so")
+    if not os.path.exists(lib) and shutil.which("g++"):
+        tb = time.perf_counter()
+        r = subprocess.run(["bash", os.path.join(root, "native", "build.sh")],
+                           capture_output=True, text=True, timeout=600)
+        print(f"native library: native/build.sh in "
+              f"{time.perf_counter() - tb:.1f} s, rc {r.returncode}: "
+              f"{(r.stdout + r.stderr).strip()[-300:]}")
+    route = "native" if native_ext.available() else "numpy"
+    config = load_experiment_config(os.path.join(
+        root, "isogs_slam_tpu_torch", "configs", "synthetic",
+        "post_splatam_opt_fullres.py"))
+    config["workdir"] = tmp
+    cfg_path = _config_file(config, tmp, "mesh_config.py")
+    out_ply = os.path.join(tmp, "mesh", "mesh_post.ply")
+
+    # the CLI as a user runs it
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    ply = extract_mesh_fast.main([
+        cfg_path, "--checkpoint", ckpt_path, "--device", "cuda",
+        "--voxel-size", str(VOXEL), "--iso-level", str(ISO),
+        "--max-per-block", str(MAX_PER_BLOCK), "--output", out_ply])
+    t_cli = time.perf_counter() - t1
+    peak_cli = torch.cuda.max_memory_allocated() / 2 ** 30
+    if ply != out_ply or not all(os.path.exists(out_ply[:-3] + e)
+                                 for e in ("ply", "obj", "stl", "txt")):
+        raise AssertionError(f"extract_mesh_fast wrote {ply}, not the "
+                             f"PLY/OBJ/STL/TXT set at {out_ply}")
+
+    # the density pass alone: grown capacities, then two timed calls
+    params = load_checkpoint(ckpt_path)
+    n = params["means3D"].shape[0]
+    info = {}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dens, spec = D.compute_density(params, voxel_size=VOXEL,
+                                   min_scale_limit=VOXEL / 2,
+                                   max_per_block=MAX_PER_BLOCK,
+                                   device="cuda", info=info)
+    torch.cuda.synchronize()
+    t_cd = time.perf_counter() - t1
+
+    def dev32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+
+    args = (dev32(params["means3D"]), dev32(params["log_scales"]),
+            dev32(params["unnorm_rotations"]),
+            dev32(params["logit_opacities"]),
+            torch.ones(n, dtype=torch.bool, device="cuda"))
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g, _ = D.density_grid(*args, spec, info["max_isect"],
+                              max_per_block=info["max_per_block"],
+                              min_scale=VOXEL / 2)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    peak_d = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = bool(torch.equal(g.cpu(), torch.as_tensor(dens)))
+    del g, args
+    torch.cuda.empty_cache()
+    print(f"mesh: {n} Gaussians; grid {list(spec.dims)} = "
+          f"{int(np.prod(spec.dims)):,} voxels in {spec.num_blocks} blocks "
+          f"of {spec.block}^3 {spec.block_dims}; after {info['rounds']} "
+          f"growth rounds max_isect {info['max_isect']}, max_per_block "
+          f"{info['max_per_block']}, overflow {info['overflow']}")
+    print(f"mesh: density min {float(dens.min()):.4f} max "
+          f"{float(dens.max()):.4f} mean {float(dens.mean()):.5f}, voxels "
+          f">= iso {ISO}: {int((dens >= ISO).sum()):,}")
+    print(f"mesh: density pass at the grown capacities {times[0]:.4f} s "
+          f"(first call), {times[1]:.4f} s (second), the grid equal to "
+          f"compute_density's: {same}; compute_density with its growth "
+          f"rounds and the host copies {t_cd:.3f} s; peak allocated "
+          f"{peak_d:.3f} GiB (the CLI's whole run: {peak_cli:.3f} GiB, "
+          f"{t_cli:.1f} s)")
+    rel, t_ref, n_live = _mesh_f64_check(dens, spec, params)
+    print(f"mesh: the card's grid against float64 at 256 voxels of each "
+          f"of 16 sampled non-empty blocks (of {n_live}): max abs error / "
+          f"grid max {rel:.3e} (tol {D.DENSITY_F64_RTOL:.0e}, what the "
+          f"reference's own CPU grid meets at room coordinates; "
+          f"{t_ref:.1f} s)")
+    if info["overflow"] or not rel < D.DENSITY_F64_RTOL:
+        raise AssertionError(f"the density grid is off float64 by {rel}")
+
+    t1 = time.perf_counter()
+    verts, faces = marching_tetrahedra(dens, ISO, spacing=spec.spacing,
+                                       origin=spec.origin)
+    t_mt = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    lv, lf = largest_component(verts, faces)
+    t_lc = time.perf_counter() - t1
+    print(f"mesh: marching tetrahedra ({route}) {t_mt:.3f} s: "
+          f"{len(verts):,} vertices, {len(faces):,} faces; "
+          f"largest_component ({route}) {t_lc:.3f} s: {len(lv):,} "
+          f"vertices, {len(lf):,} faces")
+    mesh = read_ply(out_ply)
+    if not (len(lf) > 0 and np.isfinite(lv).all()
+            and len(mesh["faces"]) == len(lf)
+            and np.isfinite(mesh["vertices"]).all()):
+        raise AssertionError("the mesh is empty, not finite, or not the "
+                             "CLI's")
+    del dens, verts, faces
+
+    # geometry eval against the analytic room, with the render eval
+    dc = config["data"]
+    ds = _dataset_from_config(config, dc["desired_image_height"],
+                              dc["desired_image_width"], "cuda")
+    frames = list(range(0, len(ds), 5))[:4]
+    coarse = synth_gt_mesh.gt_room_mesh(2.0, 64)[0]
+    scale, subdiv, z_near, fx = _render_eval_size(ds, frames, lv, coarse)
+    eh = int(round(dc["desired_image_height"] * scale / 2)) * 2
+    ew = int(round(dc["desired_image_width"] * scale / 2)) * 2
+    print(f"mesh: nearest surface a rendered pose sees {z_near:.3f} m at "
+          f"fx {fx:.1f}: render eval at {ew}x{eh}, ground truth subdivided "
+          f"{subdiv} x {subdiv} per wall")
+    gt = os.path.join(tmp, "mesh", "gt_room.ply")
+    synth_gt_mesh.main(["--out", gt, "--subdiv", str(subdiv)])
+    cfg_eval = dict(config, data=dict(dc, desired_image_height=eh,
+                                      desired_image_width=ew))
+    eval_path = _config_file(cfg_eval, tmp, "mesh_eval_config.py")
+    tee = _Tee(sys.stdout)
+    t1 = time.perf_counter()
+    old, sys.stdout = sys.stdout, tee
+    try:
+        res = eval_mesh_geometry.main([
+            eval_path, "--gt-mesh", gt, "--pred-mesh", out_ply,
+            "--render-eval", "--render-every", "5", "--render-max-frames",
+            "4", "--device", "cuda"])
+    finally:
+        sys.stdout = old
+    t_eval = time.perf_counter() - t1
+    rev = res["render_eval"]
+    print(f"mesh geometry (eval {t_eval:.1f} s): accuracy "
+          f"{res['accuracy'] * 100:.3f} cm, completion "
+          f"{res['completion'] * 100:.3f} cm, chamfer "
+          f"{res['chamfer_distance'] * 100:.3f} cm, F-score@5cm "
+          f"{res['f_score']:.4f} (P {res['precision']:.4f} / R "
+          f"{res['recall']:.4f}), hausdorff_95 "
+          f"{res['hausdorff_95'] * 100:.3f} cm, completion ratio "
+          f"{res['completion_ratio']:.4f}; render eval over frames "
+          f"{rev['frames']}: depth L1 {rev['depth_l1_cm']:.4f} cm, RMSE "
+          f"{rev['depth_rmse_cm']:.4f} cm, overlap "
+          f"{rev['mean_overlap']:.4f}")
+    if "[zbuffer]" in "".join(tee.text):
+        raise AssertionError("a face exceeded the z-buffer's footprint cap")
+    if not res["accuracy"] < 0.05:
+        raise AssertionError(f"mesh accuracy {res['accuracy']} m: the "
+                             f"mesh collapsed")
+
+    t1 = time.perf_counter()
+    profile_density.main(["--n", "500000", "--reps", "3"])
+    print(f"profile_density: {time.perf_counter() - t1:.1f} s")
+    phase("mesh (5f)", t0)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1180,12 +1468,38 @@ def main() -> int:
         launches_offline = offline_path(root, tmp)
         torch.cuda.empty_cache()
         launches_nvs = nvs_path(root, ckpt_post, tmp)
+        # 5f: the mesh path launches none of the kernels, so it is not
+        # among the paths of the kernels line
+        torch.cuda.empty_cache()
+        mesh_path(root, ckpt_post, tmp)
     finally:
         shutil.rmtree(slam_dir, ignore_errors=True)
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
-    launches_fast, tr_fast, mp_fast, _ = pipeline_path(
+    launches_fast, tr_fast, mp_fast, slam_fast = pipeline_path(
         root, "full_res_fastlegal.py", END_AT_FAST)
+    ates = [slam_fast.eval_results["Final Average ATE RMSE (cm)"]]
+    del slam_fast
+    torch.cuda.empty_cache()
+    # the same run again, same seed: the mapping stripe's backward goes
+    # through kernel C (f32 sums in a fixed order), as in the reference
+    _, _, _, slam_fast = pipeline_path(root, "full_res_fastlegal.py",
+                                       END_AT_FAST)
+    ates.append(slam_fast.eval_results["Final Average ATE RMSE (cm)"])
+    del slam_fast
+    print(f"fast run twice, same seed: ATE {ates[0]:.6f} and {ates[1]:.6f}"
+          f" cm, difference {ates[1] - ates[0]:.6f} cm")
+    n_c = launches_fast.get("segreduce", 0)
+    n_stripe = sum(v for k, v in launches_fast.items()
+                   if k.startswith("composite_bwd[T=975,"))
+    n_exact = sum(v for k, v in launches_fast.items()
+                  if k.startswith("composite_bwd[T=3225,")
+                  and int(k.split("K=")[1].rstrip("]")) >= 512)
+    print(f"fast run: kernel C launched {n_c} times for {n_stripe} stripe "
+          f"backwards (T=975) and {n_exact} exact mapping backwards")
+    if not (n_stripe > 0 and n_c >= n_stripe + n_exact):
+        raise AssertionError("the mapping stripe's backward did not go "
+                             "through kernel C")
     nt, nm = len(tr_exact), len(mp_exact)
     print(f"fast against exact, same call, over the frames both ran (1-"
           f"{nt}; mapping phases 1-{nm}): tracking "

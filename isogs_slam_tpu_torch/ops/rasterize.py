@@ -709,15 +709,22 @@ class _TileGrid(NamedTuple):
 
 
 # Rows (t_sub * max_per_tile) from which "auto" sends the subset render's
-# backward through the expansion scatter + kernel C instead of index_add_;
-# None = never. On an NVIDIA H100 80GB HBM3 (700 W; chip_smoke.py, phase
+# backward through the expansion scatter + kernel C instead of index_add_:
+# the reference's crossover (isogs_slam_tpu/ops/rasterize.py), so the
+# fast configuration's mapping stripe (T = 975 x K = 512 / 768) takes
+# kernel C and its tracking subsets (T = 806 / 209 x K = 256) take
+# index_add_, as in the reference. The route is the reference's for the
+# sum's sake, not for speed: kernel C sums each row in f32 in a fixed
+# order, while index_add_ accumulates the bf16 rows with atomics in bf16,
+# and a fast run through it moved its ATE 0.067-0.196 cm between calls of
+# one seed. On an NVIDIA H100 80GB HBM3 (700 W; chip_smoke.py, phase
 # "subset route", each aggregation as its backward runs it) index_add_
 # took 0.24 / 0.25 / 0.45 ms at 124,416 / 499,200 / 1,651,200 rows (a
 # quarter stripe, a stripe, every tile at K = 512) against 0.49-0.53 /
 # 0.51-0.57 / 0.62-0.69 ms for the expansion route, whose cost is the
 # zero-fill, the row scatter and the re-expansion around a 0.04 ms kernel:
-# no crossover up to the whole image's row count.
-SUBSET_SEGREDUCE_MIN_ROWS = None
+# 0.2-0.3 ms an iteration, which the host-bound run does not show.
+SUBSET_SEGREDUCE_MIN_ROWS = 256 * 1024
 
 
 def subset_uses_segreduce(cfg: RasterConfig, t_sub: int) -> bool:
@@ -727,7 +734,6 @@ def subset_uses_segreduce(cfg: RasterConfig, t_sub: int) -> bool:
     if cfg.bwd_mode == "segreduce":
         return True
     return (cfg.resolve_bwd_mode() == "segreduce"
-            and SUBSET_SEGREDUCE_MIN_ROWS is not None
             and t_sub * cfg.max_per_tile >= SUBSET_SEGREDUCE_MIN_ROWS)
 
 

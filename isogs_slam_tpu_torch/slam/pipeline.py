@@ -110,11 +110,13 @@ def _dataset_from_config(config, height, width, device):
 
 def primary_device(config) -> torch.device:
     """config["primary_device"] ("cuda" unless set): "cuda" or "cpu"; any
-    other (a JAX config's "tpu") is an error."""
+    other (the shipped configs' "tpu") is an error that names the CLIs'
+    --device flag."""
     want = str(config.get("primary_device", "cuda"))
     if want.split(":")[0] not in ("cuda", "cpu"):
         raise ValueError(f"primary_device={want!r}: this package runs on "
-                         f"'cuda' or, when asked, on 'cpu'")
+                         f"'cuda' or, when asked, on 'cpu'; pass --device "
+                         f"cuda (or --device cpu) to override the config")
     return resolve_device(want)
 
 

@@ -134,3 +134,20 @@ def test_fullres_postopt_config_renders_the_slam_run_frames():
         cfg = splatam.load_experiment_config(os.path.join(cfg_dir, name))
         assert cfg["primary_device"] == "cuda", name
         assert "train" in cfg and "num_iters_mapping" in cfg["train"]
+
+
+def test_shipped_config_names_the_device_flag():
+    """A shipped config (configs/replica/splatam.py, primary_device "tpu")
+    reaching the port is refused with an error that tells the user to pass
+    --device cuda (or --device cpu); the flag's value is then taken."""
+    import pytest
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    from isogs_slam_tpu_torch.slam.pipeline import primary_device
+    config = load_experiment_config(os.path.join(ROOT, "configs", "replica",
+                                                 "splatam.py"))
+    assert config["primary_device"] == "tpu"
+    with pytest.raises(ValueError, match=r"pass --device cuda \(or --device "
+                                         r"cpu\)"):
+        primary_device(config)
+    config["primary_device"] = "cpu"          # what --device cpu sets
+    assert primary_device(config).type == "cpu"

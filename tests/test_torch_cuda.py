@@ -426,3 +426,50 @@ def test_knn_blocked_cuda_matches_cpu(dev):
     assert bool(valid[i_g].all())
     assert float((torch.sort(d_c, 1).values
                   - torch.sort(d_g.cpu(), 1).values).abs().max()) < 1e-6
+
+
+def test_density_grid_cuda_matches_cpu(dev):
+    """The mesh density pass on the card against the port's own CPU grid
+    for a toy flake map: the same spec and growth, grids within 1e-4 of
+    the max (two f32 summation orders of the absolute-coordinate lift, as
+    tests/test_torch_mesh.py holds it; TF32 would show as ~1e-2)."""
+    from isogs_slam_tpu_torch.mesh.density import compute_density
+    rng = np.random.default_rng(0)
+    n = 400
+    ls = np.log(rng.uniform(0.02, 0.12, (n, 3)))
+    ls[:, 2] = np.log(0.007)
+    params = {"means3D": rng.normal(0, 0.4, (n, 3)).astype(np.float32),
+              "log_scales": ls.astype(np.float32),
+              "unnorm_rotations": rng.normal(size=(n, 4)).astype(np.float32),
+              "logit_opacities": rng.normal(0.5, 1.0, (n, 1)
+                                            ).astype(np.float32)}
+    info_c, info_g = {}, {}
+    dc, sc = compute_density(params, voxel_size=0.05, padding=0.3,
+                             min_scale_limit=0.025, max_per_block=16,
+                             device="cpu", info=info_c)
+    dg, sg = compute_density(params, voxel_size=0.05, padding=0.3,
+                             min_scale_limit=0.025, max_per_block=16,
+                             device=dev, info=info_g)
+    assert sc == sg and info_c == info_g and info_c["rounds"] > 0
+    scale = np.abs(dc).max()
+    assert np.abs(dg - dc).max() < 1e-4 * scale
+
+
+def test_zbuffer_cuda_matches_cpu(dev):
+    """render_mesh_depth on the card against the CPU: the same coverage
+    and depth within 1e-5 relative (a minimum does not depend on the
+    order of the writes)."""
+    from isogs_slam_tpu_torch.mesh.marching import marching_tetrahedra
+    from isogs_slam_tpu_torch.mesh.zbuffer import render_mesh_depth
+    lin = np.linspace(-1.2, 1.2, 48)
+    X, Y, Z = np.meshgrid(lin, lin, lin, indexing="ij")
+    v, f = marching_tetrahedra(-np.sqrt(X ** 2 + Y ** 2 + Z ** 2), -0.5,
+                               spacing=(lin[1] - lin[0],) * 3,
+                               origin=(-1.2,) * 3, use_native=False)
+    v = v + np.array([0.0, 0.0, 2.0], v.dtype)
+    K = np.array([[60.0, 0, 40], [0, 60.0, 32], [0, 0, 1]])
+    dc = render_mesh_depth(v, f, np.eye(4), K, 80, 64, device="cpu",
+                           chunk=16384)
+    dg = render_mesh_depth(v, f, np.eye(4), K, 80, 64, device=dev)
+    np.testing.assert_array_equal(dg > 0, dc > 0)
+    np.testing.assert_allclose(dg, dc, rtol=1e-5)

@@ -23,13 +23,15 @@ def test_port_imports_with_jax_blocked():
                or m == "jax" and sys.modules[m] is not None]
         assert not bad, bad
         assert "isogs_slam_tpu_torch.slam.icp" in names
+        assert "isogs_slam_tpu_torch.mesh.density" in names
+        assert "isogs_slam_tpu_torch.native_ext" in names
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 44
+    assert int(out.stdout.strip()) >= 67
 
 
 def test_port_imports_without_image_and_plot_libraries():

@@ -245,6 +245,31 @@ def test_render_tiles_subset_matches_reference(route):
         (out.detach() * valid[..., None]).numpy(), full.numpy(), atol=1e-5)
 
 
+# rows t_sub * K: a quarter stripe, every 4th tracking tile, the mapping
+# stripe (K = 512 and 768) and every tile of the 1200x680 image
+ROUTE_SIZES = {"quarter_stripe": (243, 512), "tracking": (806, 256),
+               "stripe": (975, 512), "stripe_k768": (975, 768),
+               "whole_image": (3225, 512)}
+
+
+@pytest.mark.parametrize("mode", ["auto", "segreduce", "scatter"])
+@pytest.mark.parametrize("size", list(ROUTE_SIZES))
+def test_subset_route_matches_reference(size, mode):
+    """subset_uses_segreduce picks the reference's backward route at the
+    fast configuration's sizes (124,416 / 206,336 / 499,200 / 748,800 /
+    1,651,200 rows): "auto" takes kernel C from 256 Ki rows, as the
+    reference does on its kernel backend ("pallas"; on the CPU the
+    reference's "auto" means its scatter route)."""
+    t_sub, k = ROUTE_SIZES[size]
+    ref = JR.subset_uses_segreduce(
+        JR.RasterConfig(max_per_tile=k, bwd_mode=mode, backend="pallas"),
+        t_sub)
+    assert R.subset_uses_segreduce(
+        R.RasterConfig(max_per_tile=k, bwd_mode=mode), t_sub) == ref
+    if mode == "auto":
+        assert ref == (t_sub * k >= 256 * 1024)
+
+
 MAP_LOSS = dict(tracking=False, use_sil_for_loss=False, sil_thres=0.5,
                 use_l1=True, ignore_outlier_depth_loss=False, w_im=0.5,
                 w_depth=1.0, w_flat=50.0, w_iso=0.0, calc_iso=False)
@@ -441,6 +466,7 @@ PRUNE = (True, 0, 0, 20, 20, 0.005, 0.005, False, 500)
 ISO_LOSS = dict(MAP_LOSS, w_iso=2.0, calc_iso=True, iso_sample_size=256,
                 iso_k=16, iso_pool_size=512)
 N_ITERS, POLISH = 6, 2
+RKW_MAP = dict(max_per_tile=MK, grad_scatter_bf16=False)
 
 
 def _map_inputs():
@@ -476,6 +502,43 @@ def test_map_frame_subset_matches_reference(lazy):
     ones to 1e-2 and the parameters to one learning rate per iteration:
     Adam at eps 1e-15 turns a sign flip of a near-zero gradient into a
     full step (as tests/test_torch_slice.py holds the exact path)."""
+    _map_frame_subset_both(JR.RasterConfig(backend="xla", **RKW_MAP),
+                           R.RasterConfig(**RKW_MAP), lazy)
+
+
+def test_map_frame_stripe_through_segreduce_matches_reference(monkeypatch):
+    """The fast configuration's stripe mapping with the gradient route now
+    the reference's: the row crossover is set to this toy stripe's rows in
+    both packages and the reference's "auto" resolves as on its kernel
+    backend, so both send the stripe iterations' backward through the
+    expansion scatter + segment reduce (the port: kernel C's plain
+    version, counted here), on the reference's own stripes, two frames
+    of keyframes; held as test_map_frame_subset_matches_reference."""
+    _, _, _, t_sub = M.stripe_shape(H // 16, W // 16, 2)
+    rows = t_sub * MK
+    monkeypatch.setattr(JR, "SUBSET_SEGREDUCE_MIN_ROWS", rows)
+    monkeypatch.setattr(R, "SUBSET_SEGREDUCE_MIN_ROWS", rows)
+    monkeypatch.setattr(JR.RasterConfig, "resolve_bwd_mode",
+                        lambda self: ("segreduce" if self.bwd_mode == "auto"
+                                      else self.bwd_mode))
+    cfg = R.RasterConfig(**RKW_MAP)
+    assert R.subset_uses_segreduce(cfg, t_sub)
+    assert not R.subset_uses_segreduce(cfg, t_sub - 1)
+    calls = []
+    apply = R._GatherRowsSegreduce.apply
+    monkeypatch.setattr(R._GatherRowsSegreduce, "apply",
+                        lambda *a: calls.append(a[1].shape[0]) or apply(*a))
+    # another tile_chunk (no numeric effect) keeps the reference's jit from
+    # reusing a program traced before the patches
+    _map_frame_subset_both(
+        JR.RasterConfig(backend="xla", tile_chunk=128, **RKW_MAP), cfg,
+        False)
+    # the stripe iterations' renders took the segment-reduce route
+    assert calls.count(t_sub) == N_ITERS - POLISH, calls
+
+
+
+def _map_frame_subset_both(jrcfg, rcfg, lazy):
     js, ts, jcam, cam, (kf_c, kf_d, kf_q, kf_t) = _map_inputs()
     iter_slots = np.array([0, 1, 1, 0, 1, 0], np.int32)
     keys = jax.random.split(jax.random.PRNGKey(7), N_ITERS)
@@ -502,15 +565,14 @@ def test_map_frame_subset_matches_reference(lazy):
 
     mkw = dict(num_iters=N_ITERS, tile_subsample=2,
                exact_polish_iters=POLISH, lazy_adam=lazy, **LR_MAP)
-    rkw = dict(max_per_tile=MK, grad_scatter_bf16=False)
     js1, jlog, jstats = JM.map_frame(
         js, jnp.asarray(kf_c), jnp.asarray(kf_d), jnp.asarray(kf_q),
         jnp.asarray(kf_t), jnp.asarray(iter_slots), keys, jcam,
-        JR.RasterConfig(backend="xla", **rkw), JL.LossConfig(**ISO_LOSS),
+        jrcfg, JL.LossConfig(**ISO_LOSS),
         JM.MappingConfig(prune=JM.PruneConfig(*PRUNE), **mkw))
     ts1, tlog, tstats = M.map_frame(
         ts, torch.tensor(kf_c), torch.tensor(kf_d), torch.tensor(kf_q),
-        torch.tensor(kf_t), iter_slots, cam, R.RasterConfig(**rkw),
+        torch.tensor(kf_t), iter_slots, cam, rcfg,
         L.LossConfig(**ISO_LOSS),
         M.MappingConfig(prune=M.PruneConfig(*PRUNE), **mkw),
         pool_q_idx=torch.tensor(pool_q).long(),
