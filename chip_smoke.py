@@ -16,7 +16,11 @@ before the result line):
      single-row grids of the fast modes (tiles_x = T): every 4th tile of
      both tracking cameras (T = 806 and 209) and a mapping stripe of 13
      tile rows (T = 975, bf16 backward) at K = 512, 768 and 1024; the
-     tile-to-image crop at both cameras; segment reduce at N = capacity on
+     cameras only 5g-5i render at (EXTRA_CAMERAS): the live demo's 480x360
+     (T = 690, a half-empty last tile row) at K = 256 (f32 backward), 512,
+     768 and 1024, the viewers' 600x340 and 240x180 at K = 512 (T = 836,
+     180) and test_installation's 64x48 at K = 128 (T = 12); the
+     tile-to-image crop at three cameras; segment reduce at N = capacity on
      all tiles' rows and on a stripe's rows only; also the plain PyTorch
      form of the backward kernel's algebra against autograd through the
      plain forward; time kernel, plain version and (segment reduce)
@@ -74,6 +78,24 @@ before the result line):
   after the fast pipeline path, a second run of it with the same seed:
      both ATEs and their difference (kernel C carries the mapping
      stripe's backward; the launch counts must show it);
+  5g. the shipped configs/replica/splatam.py as it is (1200x680, 10
+     tracking and 40 mapping iterations) through the CLI on 16 frames that
+     tools.synth_to_replica writes in Replica layout (JPEG, uint16 PNG,
+     traj.txt, camera YAML), with eval and the phase-5 gates (the mask's
+     at the pipeline's own 1%: this config tracks at sil_thres 0.99); then
+     tools.compare_expected against configs/replica/expected_metrics.json
+     (real room0 numbers: information, not a gate);
+  5h. the live demo at configs/iphone/online_demo.py's 480x360: a writer
+     thread streams the synthetic scene at 10 Hz into a capture directory
+     while scripts.iphone_demo runs SLAM on it (30 frames, eval; finite
+     values, quality printed), then viz_scripts.online_recon on its
+     checkpoints;
+  5i. the viewers on 5g's checkpoint: viz_scripts.final_recon (replay,
+     8-frame orbit, depth mode) at --downscale 2, one pose at downscale 1
+     against the SLAM object's own render, --sh on a copy with random
+     higher bands (SH colours card against CPU, the frame against the
+     card's render of the CPU's colours), scripts.test_installation and
+     scripts.model_browser --text over 5g's and 5h's runs;
   6. the `kernels` JSON line;
   7. the result line {"ok": true, "device": {...}}.
 
@@ -96,6 +118,15 @@ import time
 H, W = 680, 1200
 TRACK_ITERS, MAP_ITERS, N_FRAMES = 10, 10, 2     # the hand-driven path
 END_AT_EXACT, END_AT_FAST = 15, 30             # the pipeline paths
+N_REPLICA = 16                  # 5g: frames of the Replica-layout bridge
+# the shipped configs track at sil_thres 0.99, where the synthetic scene's
+# single-sheet walls leave a small mask by design (the iso target holds the
+# silhouette near 0.9-0.99: NOTES.md:1358-1362; 5g measured a minimum of
+# 0.051 at ATE 0.18 cm on the H100): 5g fails at the pipeline's own
+# frozen-pose line, a mask under 1% (slam/pipeline.py's warning), not at
+# the 0.1 that the sil_thres-0.5 configs of phase 5 meet
+REPLICA_MIN_MASK = 0.01
+LIVE_H, LIVE_W, LIVE_HZ, N_LIVE = 360, 480, 10.0, 30   # 5h: the live demo
 SUB = 4                     # the fast configuration's tile_subsample
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
@@ -280,6 +311,58 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
                 desc=f"stripe of {rows_w} tile rows on a virtual row")
     return out, dict(state=state0, table=table, proj=proj, bins=bins,
                      stripe_sel=sel, pose0=(q0, t0_))
+
+
+# the cameras that only phases 5g-5i render at, as (tag, width, height,
+# ((K, backward dtype), ...)): the live demo at 480x360 (30 x 23 tiles, the
+# last row half empty; tracking K = 256, mapping 512 and the escalations),
+# the viewers at the default --downscale 2 of 1200x680 and of 480x360, and
+# test_installation's 64x48 scene at K = 128; intrinsics of the synthetic
+# dataset at that size
+EXTRA_CAMERAS = (
+    ("live", 480, 360, ((256, "f32"), (512, "bf16"), (768, "bf16"),
+                        (1024, "bf16"))),
+    ("viewer", 600, 340, ((512, "bf16"),)),
+    ("online", 240, 180, ((512, "bf16"),)),
+    ("install", 64, 48, ((128, "bf16"),)),
+)
+
+
+def camera_inputs(ctx, rcfg, dev):
+    """Phase 3's inputs at EXTRA_CAMERAS, in composite_inputs' format: the
+    fused table of the frame-0 map at keyframe 0's pose, projected through
+    each camera and gathered by bins of each K."""
+    import torch
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.rasterize import (bin_gaussians,
+                                                    project_gaussians)
+    from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
+    p0, alive = ctx["state"].params, ctx["state"].alive
+    q0, t0_ = ctx["pose0"]
+    out = {}
+    with torch.no_grad():
+        mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations, q0,
+                                    t0_, gaussians_grad=False,
+                                    camera_grad=False)
+        for tag, w, h, ks in EXTRA_CAMERAS:
+            c = Camera(width=w, height=h, fx=0.75 * w, fy=0.75 * w,
+                       cx=w / 2 - 0.5, cy=h / 2 - 0.5)
+            proj = project_gaussians(mc, qc, p0.log_scales, alive, c)
+            op = torch.where(proj.valid,
+                             torch.sigmoid(p0.logit_opacities[:, 0]),
+                             torch.zeros_like(proj.u))
+            table = torch.stack([proj.u, proj.v, proj.conic[:, 0],
+                                 proj.conic[:, 1], proj.conic[:, 2], op,
+                                 p0.rgb_colors[:, 0], p0.rgb_colors[:, 1],
+                                 p0.rgb_colors[:, 2], mc[:, 2]], dim=1)
+            for k, bdt in ks:
+                b = bin_gaussians(proj, c, rcfg._replace(max_per_tile=k),
+                                  emit_exp=True)
+                out[f"{tag}{k}"] = dict(
+                    g=table[b.tile_gauss].contiguous(), cnt=b.tile_count,
+                    tiles_x=c.tiles_x, bins=b, desc=f"camera {w}x{h}",
+                    bdt=torch.float32 if bdt == "f32" else torch.bfloat16)
+    return out
 
 
 def check_tile_crop(cam, dev):
@@ -493,56 +576,80 @@ def cull_phase(ctx, cam, rcfg, dev):
 
 def pipeline_path(root, config_name, end_at, extra_args=(), keep=False):
     """Phase 5: the port's CLI in-process on configs/synthetic/<config_name>
-    with evaluation and checkpoints, into a temporary run directory; the
-    launch counters are set to 0 before and read after. Prints the run's
-    numbers, raises on a failed check, returns (launch counts, seconds of
-    each tracking frame, seconds of each mapping phase, the SLAM object).
-    keep=True leaves the run directory (slam.output_dir holds the
-    checkpoints) for the caller to delete."""
-    import numpy as np
+    with evaluation and checkpoints (one at end_at), into a temporary run
+    directory; see cli_path."""
+    return cli_path(
+        os.path.join(root, "isogs_slam_tpu_torch", "configs", "synthetic",
+                     config_name), config_name, end_at,
+        ["--set", "save_checkpoints=True",
+         "--set", f"checkpoint_interval={end_at}", *extra_args], keep)
+
+
+def cli_path(config_path, name, end_at, extra_args=(), keep=False,
+             run_dir=None, min_mask=0.1):
+    """The port's CLI (scripts.splatam.main) in-process on `config_path`
+    with evaluation, `--end-at end_at` and `--set workdir=run_dir` (a new
+    temporary directory unless given); the launch counters are set to 0
+    before and read after. Prints the run's numbers and checks them
+    (report_run, with min_mask); returns (launch counts, seconds of each tracking frame,
+    seconds of each mapping phase, the SLAM object). keep=True leaves the
+    run directory (slam.output_dir holds the checkpoints) for the caller to
+    delete."""
     import torch
-    from isogs_slam_tpu_torch.io.checkpoints import (latest_checkpoint,
-                                                     load_checkpoint)
     from isogs_slam_tpu_torch.ops import _cuda
     from isogs_slam_tpu_torch.scripts import splatam
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launches()
-    run_dir = tempfile.mkdtemp(prefix="isogs_smoke_")
+    run_dir = run_dir or tempfile.mkdtemp(prefix="isogs_smoke_")
     try:
         slam = splatam.main([
-            os.path.join(root, "isogs_slam_tpu_torch", "configs",
-                         "synthetic", config_name),
-            "--end-at", str(end_at), "--set", f"workdir={run_dir}",
-            "--set", "save_checkpoints=True",
-            "--set", f"checkpoint_interval={end_at}", *extra_args])
+            config_path, "--end-at", str(end_at),
+            "--set", f"workdir={run_dir}", *extra_args])
         torch.cuda.synchronize()
         launches_cli = dict(_cuda.LAUNCHES)
-        t_cli = time.perf_counter() - t0
-        with open(os.path.join(slam.output_dir, "metrics_log.csv")) as f:
-            rows = list(csv.DictReader(f))
-        ckpts = sorted(os.listdir(slam.output_dir))
-        ck_frame, ck_path = latest_checkpoint(slam.output_dir)
-        ck = load_checkpoint(ck_path)
+        tr, mp = report_run(slam, name, end_at, t0, launches_cli, min_mask)
     except BaseException:
         shutil.rmtree(run_dir, ignore_errors=True)
         raise
     if not keep:
         shutil.rmtree(run_dir, ignore_errors=True)
+    return launches_cli, tr, mp, slam
+
+
+def report_run(slam, name, end_at, t0, launches, min_mask=0.1):
+    """Print a finished SLAM run's numbers (timings, tile-list reuse, cap
+    escalations, capacity, peak memory, quality, launches) and fail on a
+    last checkpoint that is not frame end_at's map or a non-finite loss,
+    parameter or pose; unless min_mask is None, also on a tracking mask
+    under min_mask, ATE >= 2 cm or PSNR <= 25 dB. Returns (seconds of each
+    tracking frame after the first, seconds of each mapping phase)."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.io.checkpoints import (latest_checkpoint,
+                                                     load_checkpoint)
+    t_cli = time.perf_counter() - t0
+    with open(os.path.join(slam.output_dir, "metrics_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    ckpts = sorted(os.listdir(slam.output_dir))
+    ck_frame, ck_path = latest_checkpoint(slam.output_dir)
+    ck = load_checkpoint(ck_path)
     st, ev, res = slam.stats, slam.events, slam.eval_results
     tr, mp = st["tracking_frame_time"][1:], st["mapping_frame_time"]
     n_alive = int(slam.state.num_alive())
-    print(f"pipeline {config_name}: frames 0-{end_at} + eval in {t_cli:.1f} "
-          f"s; tracking.tile_subsample {slam.tcfg.tile_subsample}, "
+    print(f"pipeline {name}: frames 0-{end_at} + eval in {t_cli:.1f} "
+          f"s at {slam.cam.width}x{slam.cam.height}; "
+          f"tracking.tile_subsample {slam.tcfg.tile_subsample}, "
           f"mapping.tile_subsample {slam.mcfg.tile_subsample}, "
           f"exact_polish_iters {slam.mcfg.exact_polish_iters} (frames are "
-          f"rendered by the dataset's prefetch thread on the same stream, "
-          f"inside these times)")
+          f"loaded by the dataset's prefetch thread, the synthetic ones "
+          f"rendered on the same stream, inside these times)")
     print(f"tracking s/frame: mean {np.mean(tr):.4f} min {np.min(tr):.4f} "
           f"max {np.max(tr):.4f} over {len(tr)} frames "
           f"({np.mean(st['tracking_iters_run']):.1f} iterations each)")
     print(f"mapping s/phase: mean {np.mean(mp):.4f} min {np.min(mp):.4f} "
-          f"max {np.max(mp):.4f} over {len(mp)} phases; each: "
+          f"max {np.max(mp):.4f} over {len(mp)} phases "
+          f"({slam.mcfg.num_iters} iterations each); each: "
           f"{[round(x, 3) for x in mp]}")
     print(f"BinningReuse: {slam._track_bins.n_rebins} rebins, "
           f"{slam._track_bins.n_reuses} reuses")
@@ -560,11 +667,12 @@ def pipeline_path(root, config_name, end_at, extra_args=(), keep=False):
           f"{res['Average MS-SSIM']:.4f}, depth L1 "
           f"{res['Average Depth L1 (cm)']:.4f} cm, LPIPS "
           f"({res['LPIPS Variant']}) {res['Average LPIPS']:.5f}")
-    print(f"tracking mask_frac: min {min(st['tracking_mask_frac']):.3f}; "
-          f"checkpoint files {[c for c in ckpts if c.startswith('params')]}")
-    print(f"launches on the pipeline path {launches_cli}")
-    phase(f"pipeline path (CLI, {config_name}, {end_at + 1} frames + eval)",
-          t0)
+    print(f"tracking mask_frac: min {min(st['tracking_mask_frac']):.3f} "
+          f"at sil_thres {slam.lcfg_track.sil_thres}, each frame "
+          f"{[round(x, 3) for x in st['tracking_mask_frac']]}; checkpoint "
+          f"files {[c for c in ckpts if c.startswith('params')]}")
+    print(f"launches on the pipeline path {launches}")
+    phase(f"pipeline path ({name}, {end_at + 1} frames + eval)", t0)
     if ck_frame != end_at or ck["means3D"].shape[0] != n_alive:
         raise AssertionError("the last checkpoint does not hold the map")
     vals = np.array([[float(r[k]) for k in ("loss", "image_loss",
@@ -576,14 +684,18 @@ def pipeline_path(root, config_name, end_at, extra_args=(), keep=False):
                     for p in slam.state.params)
             and np.isfinite(slam.cam_trans[:, :end_at + 1]).all()):
         raise AssertionError("non-finite losses, parameters or poses")
-    if min(st["tracking_mask_frac"]) < 0.1:
-        raise AssertionError("the tracking mask collapsed")
-    if not (res["Final Average ATE RMSE (cm)"] < 2.0
-            and res["Average PSNR"] > 25.0):
-        raise AssertionError(f"the run collapsed: {res}")
-    if "--profile" in sys.argv[1:]:
+    if min_mask is not None:
+        if min(st["tracking_mask_frac"]) < min_mask:
+            raise AssertionError("the tracking mask collapsed")
+        if not (res["Final Average ATE RMSE (cm)"] < 2.0
+                and res["Average PSNR"] > 25.0):
+            raise AssertionError(f"the run collapsed: {res}")
+    elif not all(np.isfinite(v) for v in res.values()
+                 if isinstance(v, float)):
+        raise AssertionError(f"non-finite eval metrics: {res}")
+    if "--profile" in sys.argv[1:] and end_at + 1 < len(slam.dataset):
         profile_pipeline(slam, end_at + 1)
-    return launches_cli, list(tr), list(mp), slam
+    return list(tr), list(mp)
 
 
 def uv_grad_quantile(state, im, depth, quat, trans, cam, rcfg, q=0.9):
@@ -823,6 +935,309 @@ def nvs_path(root, ckpt_path, tmp):
     if not all(np.isfinite(v) for k, v in res.items()
                if isinstance(v, float)):
         raise AssertionError(f"novel-view metrics not finite: {res}")
+    return launches
+
+
+def replica_path(root, tmp, dev):
+    """Phase 5g: the shipped configs/replica/splatam.py at its own 1200x680,
+    10 tracking and 40 mapping iterations, through the port's CLI on the
+    synthetic scene written in Replica layout by tools.synth_to_replica
+    (JPEG colour, uint16 PNG depth, traj.txt, camera YAML), with only the
+    data paths, --end-at, the workdir and --device overridden; eval
+    included, then tools.compare_expected against
+    configs/replica/expected_metrics.json (real room0 numbers: printed as
+    information, not a gate). Returns (launch counts, the SLAM object); its
+    run directory under tmp/experiments stays for 5i."""
+    from isogs_slam_tpu_torch.tools import compare_expected, synth_to_replica
+    t0 = time.perf_counter()
+    data_root = os.path.join(tmp, "replica_data")
+    yaml_path = synth_to_replica.write_replica_layout(
+        data_root, "room0", num_frames=N_REPLICA, height=H, width=W,
+        device=dev)
+    print(f"Replica bridge: {N_REPLICA} frames at {W}x{H} written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    os.environ["SPLATAM_SCENE_INDEX"] = "0"
+    launches, _, _, slam = cli_path(
+        os.path.join(root, "configs", "replica", "splatam.py"),
+        "configs/replica/splatam.py", N_REPLICA - 1,
+        ["--device", str(dev), "--set", f"data.basedir={data_root}",
+         "--set", f"data.gradslam_data_cfg={yaml_path}"], keep=True,
+        run_dir=os.path.join(tmp, "experiments", "Replica"),
+        min_mask=REPLICA_MIN_MASK)
+    print(f"Replica config as shipped: {slam.cam.width}x{slam.cam.height}, "
+          f"{type(slam.dataset).__name__}, tracking {slam.tcfg.num_iters} "
+          f"iterations (sil_norm_render {slam.lcfg_track.sil_norm_render}), "
+          f"mapping {slam.mcfg.num_iters} every {slam.config['map_every']} "
+          f"frames, max_per_tile {slam.rcfg.max_per_tile} now")
+    if not (type(slam.dataset).__name__ == "ReplicaDataset"
+            and (slam.cam.width, slam.cam.height) == (W, H)
+            and slam.tcfg.num_iters == 10 and slam.mcfg.num_iters == 40
+            and slam.lcfg_track.sil_norm_render):
+        raise AssertionError("the Replica config was not run as shipped")
+    rc = compare_expected.main([
+        os.path.join(root, "configs", "replica", "expected_metrics.json"),
+        "room0=" + os.path.join(slam.eval_dir, "eval_summary.json")])
+    print(f"compare_expected exit code {rc} (information, not a gate: "
+          f"synthetic frames against the real room0 numbers)")
+    phase("Replica config (5g)", t0)
+    return launches, slam
+
+
+def live_path(root, tmp, dev):
+    """Phase 5h: the live demo at configs/iphone/online_demo.py's size. A
+    writer thread streams the synthetic scene (at the bridge's density for
+    its size, as 5g) at 480x360 and 10 Hz into a capture directory
+    (scripts.nerfcapture2dataset.stream_synthetic, the port's
+    write_capture_frame) and then writes `done`, while
+    scripts.iphone_demo.main runs SLAM on that directory (a copy of the
+    shipped config with its workdir in tmp/experiments; --device) and
+    evaluates; then viz_scripts.online_recon renders its newest
+    checkpoint. Fails on a crash, a non-finite value, a missing checkpoint
+    or online_recon frame; the quality numbers are printed, not gated (a
+    phone's config tracking the synthetic stand-in at sil_thres 0.99).
+    Launch counters from 0 before the writer, read after online_recon.
+    Returns the launch counts."""
+    import threading
+    import traceback
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.scripts import iphone_demo, nerfcapture2dataset
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    from isogs_slam_tpu_torch.viz_scripts import online_recon
+    t0 = time.perf_counter()
+    config = load_experiment_config(
+        os.path.join(root, "configs", "iphone", "online_demo.py"))
+    config["workdir"] = os.path.join(tmp, "experiments", "iPhone_Captures")
+    path = _config_file(config, tmp, "online_demo.py")
+    cap = os.path.join(tmp, "live_capture")
+    writer_error = []
+
+    def writer():
+        try:
+            nerfcapture2dataset.stream_synthetic(
+                cap, N_LIVE, hz=LIVE_HZ, height=LIVE_H, width=LIVE_W,
+                n_per_wall=max(400, LIVE_H * LIVE_W // 40), device=dev)
+        except BaseException as e:      # reported by the caller
+            traceback.print_exc()
+            writer_error.append(e)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    th = threading.Thread(target=writer, daemon=True)
+    th.start()
+    try:
+        slam = iphone_demo.main([path, "--source", "dir", "--watch", cap,
+                                 "--n-frames", str(N_LIVE), "--timeout",
+                                 "60", "--device", str(dev)])
+    finally:
+        th.join(timeout=120)
+    if writer_error or th.is_alive():
+        raise AssertionError(f"the capture writer failed: {writer_error}")
+    tr, _ = report_run(slam, "iphone_demo configs/iphone/online_demo.py",
+                       N_LIVE - 1, t0, dict(_cuda.LAUNCHES), min_mask=None)
+    print(f"live demo: tracking {np.mean(tr):.4f} s/frame "
+          f"({slam.tcfg.num_iters} iterations) against the "
+          f"{1 / LIVE_HZ:.3f} s a {LIVE_HZ:.0f} Hz stream allows; mapping "
+          f"every {slam.config['map_every']} frames")
+    t1 = time.perf_counter()
+    frames = online_recon.main([path, "--poll", "0.05", "--max-wait", "0.5",
+                                "--device", str(dev)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    print(f"online_recon: {len(frames)} frame(s) of "
+          f"{frames[0].shape if frames else None} in "
+          f"{time.perf_counter() - t1:.2f} s; launches on the live path "
+          f"{launches}")
+    if len(frames) != 1 or frames[0].shape != (LIVE_H // 2, LIVE_W // 2, 3):
+        raise AssertionError("online_recon did not render the checkpoint")
+    phase("live demo (5h)", t0)
+    return launches
+
+
+def _tile_depth(state, w2c, cam, rcfg):
+    """(most candidates any tile has, true candidates the K cap drops) of
+    a map seen from w2c."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.ops.rasterize import (bin_gaussians,
+                                                    project_gaussians)
+    from isogs_slam_tpu_torch.utils.transforms import (rotmat_to_quat,
+                                                       transform_to_frame)
+    dev = state.alive.device
+    q = rotmat_to_quat(torch.as_tensor(w2c[:3, :3], dtype=torch.float32))
+    with torch.no_grad():
+        mc, qc = transform_to_frame(
+            state.params.means3d, state.params.unnorm_rotations,
+            (q / q.norm()).to(dev),
+            torch.as_tensor(np.asarray(w2c[:3, 3]), dtype=torch.float32,
+                            device=dev), gaussians_grad=False,
+            camera_grad=False)
+        proj = project_gaussians(mc, qc, state.params.log_scales,
+                                 state.alive, cam)
+        b = bin_gaussians(proj, cam, rcfg._replace(max_per_tile=4096))
+        deepest = int(b.tile_count.max())
+        b = bin_gaussians(proj, cam, rcfg)
+    return deepest, int(b.n_true_overflow)
+
+
+def _flips(a, b, tol):
+    """(max |a - b|, pixels where any channel differs by more than tol) of
+    two [C, H, W] images."""
+    err = (a - b).abs()
+    return float(err.max()), int((err > tol).any(0).sum())
+
+
+def viewer_path(root, tmp, dev, slam):
+    """Phase 5i: the viewers on 5g's final checkpoint. final_recon.main at
+    the default --downscale 2 (replay every 5th pose and an 8-frame orbit
+    in colour, the replay in depth); one pose at --downscale 1 against the
+    SLAM object's own map rendered at that pose with the viewers'
+    RasterConfig (1e-5 of the image; a pixel whose threshold test flips
+    between the two nearly equal poses may differ by one slot's weight,
+    as in phase 3); --sh on a copy of the checkpoint given random
+    higher-band sh_coeffs_flat, its frame on the card against the CPU's
+    (the same rule); scripts.test_installation (rc 0); model_browser --text
+    over tmp/experiments, which must list 5g's and 5h's runs. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.eval.eval_helpers import render_at_pose
+    from isogs_slam_tpu_torch.io.images import imread
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.scripts import model_browser, test_installation
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    from isogs_slam_tpu_torch.viz_scripts import final_recon
+    from isogs_slam_tpu_torch.viz_scripts.common import (
+        frame_to_uint8, load_scene, make_render_fn, render_w2c)
+    t0 = time.perf_counter()
+    _cuda.reset_launches()
+    config = load_experiment_config(
+        os.path.join(root, "configs", "replica", "splatam.py"))
+    config["workdir"] = os.path.dirname(slam.output_dir)
+    path = _config_file(config, tmp, "replica_viewer.py")
+    final_recon.main([path, "--orbit-frames", "8", "--device", str(dev)])
+    final_recon.main([path, "--mode", "depth", "--device", str(dev)])
+    viz = os.path.join(slam.output_dir, "viz")
+    n_replay = len(range(0, N_REPLICA, 5))
+    for sub, n in (("replay_color", n_replay), ("orbit", 8),
+                   ("replay_depth", n_replay)):
+        names = sorted(os.listdir(os.path.join(viz, sub)))
+        shape = imread(os.path.join(viz, sub, names[0])).shape
+        print(f"final_recon {sub}: {len(names)} frames of {shape}")
+        if len(names) != n or shape != (H // 2, W // 2, 3):
+            raise AssertionError(f"final_recon wrote {sub} wrongly")
+    t_viz = time.perf_counter() - t0
+
+    # one pose at --downscale 1: the checkpoint through load_scene and
+    # render_w2c against the SLAM object's own map and pose
+    rcfg = final_recon.viewer_raster_config(config)
+    st, cam, est, _, ckpt = load_scene(slam.output_dir, device=dev)
+    t_last = N_REPLICA - 1
+    im_v, d_v, s_v = render_w2c(make_render_fn(cam, rcfg), st, est[t_last])
+    q = slam.cam_rots[:, t_last] / np.linalg.norm(slam.cam_rots[:, t_last])
+    im_s, d_s, s_s = make_render_fn(slam.cam, rcfg)(
+        slam.state.params, slam.state.alive,
+        torch.as_tensor(q, dtype=torch.float32, device=dev),
+        torch.as_tensor(slam.cam_trans[:, t_last], dtype=torch.float32,
+                        device=dev))
+    tol = 1e-5 * max(1.0, float(im_s.abs().max()))
+    err, bad = _flips(im_v, im_s, tol)
+    err_d, _ = _flips(d_v, d_s, tol)
+    err_s, _ = _flips(s_v[None], s_s[None], tol)
+    im_e = render_at_pose(slam, q, slam.cam_trans[:, t_last])[0]
+    err_e, bad_e = _flips(im_v, im_e, tol)
+    deepest, dropped = _tile_depth(st, est[t_last], cam, rcfg)
+    print(f"viewer at --downscale 1, pose {t_last}, against the SLAM "
+          f"object's render with the viewers' RasterConfig (K = "
+          f"{rcfg.max_per_tile}): image max err {err:.3e} (pixels over "
+          f"{tol:.1e}: {bad} of {W * H}), depth {err_d:.3e}, silhouette "
+          f"{err_s:.3e}; against its eval render at K = "
+          f"{slam.rcfg.max_per_tile}: max err {err_e:.3e}, {bad_e} pixels "
+          f"over (the viewers' fixed K: the deepest tile has {deepest} "
+          f"candidates, the cap drops {dropped})")
+    if bad > max(2, 1e-5 * W * H) or not np.isfinite(err):
+        raise AssertionError("the viewer's frame is not the SLAM map's")
+
+    # --sh on a copy of the checkpoint with random higher bands, at the
+    # default --downscale 2. The SH pre-pass is held on the card against
+    # the CPU (the tolerance of test_eval_sh_cuda_matches_cpu), and the
+    # card's frame against the card's render of the CPU's colours (1e-5,
+    # as above). A whole frame rendered on the CPU is printed, not held:
+    # the walls' Gaussians lie at depths a few float roundings apart, the
+    # two devices round the camera transform differently, and a pair that
+    # sorts the other way changes a pixel by a1 * a2 * (c2 - c1)
+    from isogs_slam_tpu_torch.ops.sh import sh_colors_for_pose
+    sh_run = os.path.join(tmp, "sh_experiments", "room0_0")
+    os.makedirs(sh_run)
+    data = dict(np.load(ckpt))
+    shf = data["sh_coeffs_flat"].copy()
+    shf[:, 3:] = 0.3 * np.random.default_rng(0).standard_normal(
+        shf[:, 3:].shape)
+    data["sh_coeffs_flat"] = shf.astype(np.float32)
+    np.savez(os.path.join(sh_run, os.path.basename(ckpt)), **data)
+    path_sh = _config_file(dict(config, workdir=os.path.dirname(sh_run)),
+                           tmp, "replica_viewer_sh.py")
+    final_recon.main([path_sh, "--sh", "--every", str(N_REPLICA),
+                      "--device", str(dev)])
+    st, cam, est, _, _, shf_t = load_scene(sh_run, return_sh=True,
+                                           device=dev)
+    cam = cam.scaled(cam.width // 2, cam.height // 2)
+    fn = make_render_fn(cam, rcfg)
+    center = -est[0][:3, :3].T @ est[0][:3, 3]
+    cols = sh_colors_for_pose(
+        shf_t, st.params.means3d,
+        torch.as_tensor(center, dtype=torch.float32, device=dev))
+    cols_cpu = sh_colors_for_pose(
+        shf_t.cpu(), st.params.means3d.cpu(),
+        torch.as_tensor(center, dtype=torch.float32))
+    sh_ok = bool(torch.allclose(cols.cpu(), cols_cpu, rtol=2 ** -22,
+                                atol=1e-6))
+    sh_err = float((cols.cpu() - cols_cpu).abs().max())
+    im_sh = render_w2c(fn, st, est[0], sh_flat=shf_t)[0]
+    im_cpu_cols = render_w2c(fn, st._replace(params=st.params._replace(
+        rgb_colors=cols_cpu.to(dev))), est[0])[0]
+    tol = 1e-5 * max(1.0, float(im_cpu_cols.abs().max()))
+    err, bad = _flips(im_sh, im_cpu_cols, tol)
+    rgb = frame_to_uint8(render_w2c(fn, st, est[0])[0])
+    png = imread(os.path.join(sh_run, "viz", "replay_color", "00000.png"))
+    same_png = bool(np.array_equal(png, frame_to_uint8(im_sh)))
+    st_c, cam_c, est_c, _, _, shf_c = load_scene(sh_run, return_sh=True,
+                                                 device="cpu")
+    im_c = render_w2c(make_render_fn(cam_c.scaled(cam.width, cam.height),
+                                     rcfg), st_c, est_c[0], sh_flat=shf_c)[0]
+    err_c, bad_c = _flips(im_sh.cpu(), im_c, tol)
+    print(f"--sh at {cam.width}x{cam.height}: SH colours on the card "
+          f"against the CPU max err {sh_err:.3e} (within rtol 2^-22 + "
+          f"1e-6: {sh_ok}); the frame against the card's render of the "
+          f"CPU's colours max err {err:.3e}, pixels over {tol:.1e}: {bad} "
+          f"of {cam.width * cam.height}; the CLI's PNG is the card's frame: "
+          f"{same_png}; mean |SH - stored RGB| "
+          f"{np.abs(png.astype(int) - rgb).mean():.2f} levels; the whole "
+          f"frame rendered on the CPU (information): max err {err_c:.3e}, "
+          f"{bad_c} pixels over")
+    if not (sh_ok and same_png and np.isfinite(err)
+            and bad <= max(2, 1e-5 * cam.width * cam.height)):
+        raise AssertionError("the --sh frame differs between card and CPU")
+
+    rc = test_installation.main(["--device", str(dev)])
+    if rc != 0:
+        raise AssertionError("test_installation failed")
+    exp_root = os.path.join(tmp, "experiments")
+    model_browser.main(["--root", exp_root, "--text"])
+    runs = sorted(os.path.relpath(r[0], exp_root)
+                  for r in model_browser.scan_runs(exp_root))
+    if runs != [os.path.join("Replica", "room0_0"),
+                os.path.join("iPhone_Captures", "online_demo_0")]:
+        raise AssertionError(f"model_browser lists {runs}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    print(f"viewers: final_recon x2 in {t_viz:.1f} s; launches on the "
+          f"viewers' path (with test_installation) {launches}")
+    phase("viewers (5i)", t0)
     return launches
 
 
@@ -1167,10 +1582,12 @@ def main() -> int:
     t0 = time.perf_counter()
     inputs, ctx = composite_inputs(frames, cam, capacity, rcfg, rcfg_track,
                                    dev)
+    inputs.update(camera_inputs(ctx, rcfg, dev))
     results = {}
     rng = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
-        for c in (cam, pyramid_cam(cam, 1)):
+        # the live demo's 480x360: a half-empty last tile row
+        for c in (cam, pyramid_cam(cam, 1), cam.scaled(480, 360)):
             check_tile_crop(c, dev)
         for tag, rec in inputs.items():
             g, cnt, tx, bdt, b = (rec["g"], rec["cnt"], rec["tiles_x"],
@@ -1516,10 +1933,27 @@ def main() -> int:
         raise AssertionError(f"the fast path launched no virtual-row shape: "
                              f"{launches_fast}")
 
+    # 5g, 5h, 5i: the shipped Replica config, the live demo, the viewers;
+    # the runs share one experiments root (tmp/experiments) for the browser
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="isogs_front_")
+    try:
+        launches_replica, slam = replica_path(root, tmp, dev)
+        torch.cuda.empty_cache()
+        launches_live = live_path(root, tmp, dev)
+        torch.cuda.empty_cache()
+        launches_viewers = viewer_path(root, tmp, dev, slam)
+        del slam
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # 6. kernels line: launches of the paths, each read after its run
     paths = (("hand-driven", launches_hand), ("pipeline", launches_cli),
              ("post-opt", launches_post), ("offline", launches_offline),
-             ("novel view", launches_nvs), ("fast pipeline", launches_fast))
+             ("novel view", launches_nvs), ("fast pipeline", launches_fast),
+             ("Replica config", launches_replica),
+             ("live demo", launches_live), ("viewers", launches_viewers))
     kernels = []
     forward_only = ("novel view",)
     for path_name, launches in paths:

@@ -53,6 +53,16 @@ class Camera:
                       cx=float(K[0, 2]), cy=float(K[1, 2]),
                       near=near, far=far)
 
+    def scaled(self, width: int, height: int) -> "Camera":
+        """Rescale intrinsics to a new resolution (dataset-layer
+        semantics)."""
+        sx = width / self.width
+        sy = height / self.height
+        return Camera(width=width, height=height,
+                      fx=self.fx * sx, fy=self.fy * sy,
+                      cx=self.cx * sx, cy=self.cy * sy,
+                      near=self.near, far=self.far)
+
     def intrinsics_matrix(self) -> np.ndarray:
         K = np.eye(3, dtype=np.float32)
         K[0, 0], K[1, 1], K[0, 2], K[1, 2] = self.fx, self.fy, self.cx, self.cy

@@ -1,8 +1,8 @@
 """Dataset registry (counterpart of isogs_slam_tpu/datasets/__init__.py).
 
-The file loaders need imageio and PIL, which a machine that only runs the
-synthetic scene may lack: they are imported inside their branches, and the
-image libraries at a loader's first read."""
+The file loaders need PIL (and PyYAML for their camera files), which a
+machine that only runs the synthetic scene may lack: they are imported
+inside their branches, and the image library at a loader's first read."""
 from __future__ import annotations
 
 from .dataconfig import load_dataset_config

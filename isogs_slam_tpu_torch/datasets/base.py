@@ -5,8 +5,8 @@
 intrinsics [4,4], c2w pose [4,4]) as numpy arrays; color is
 bilinear-resized, depth nearest-resized then divided by png_depth_scale,
 intrinsics scaled by the resize ratios, and poses normalized relative to
-the first frame. Host-side numpy; imageio and PIL (and cv2 for distorted
-cameras) are imported at first use.
+the first frame. Host-side numpy; PIL (and cv2 for distorted cameras) is
+imported at first use.
 """
 from __future__ import annotations
 
@@ -16,13 +16,7 @@ from typing import List, Optional
 
 import numpy as np
 
-
-def _imread(path):
-    try:
-        import imageio.v2 as imageio
-    except ImportError:  # pragma: no cover
-        import imageio
-    return imageio.imread(path)
+from ..io.images import imread as _imread
 
 
 def natsorted(paths):

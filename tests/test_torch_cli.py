@@ -151,3 +151,67 @@ def test_shipped_config_names_the_device_flag():
         primary_device(config)
     config["primary_device"] = "cpu"          # what --device cpu sets
     assert primary_device(config).type == "cpu"
+
+
+def _numbers(text, key):
+    import re
+    return [float(x) for x in re.findall(rf"{key}=(-?[0-9.]+)", text)]
+
+
+def test_installation_check_on_cpu(capsys):
+    """The port's environment check with --device cpu passes every item,
+    and its render's loss is the JAX check's on the same scene
+    (isogs_slam_tpu/scripts/test_installation.py:40-56, the forward only)
+    within 1e-6 relative (the printed value has 2 decimals of ~8006)."""
+    import jax
+    import jax.numpy as jnp
+    from isogs_slam_tpu.core.camera import Camera as JCamera
+    from isogs_slam_tpu.ops.rasterize import RasterConfig as JRasterConfig
+    from isogs_slam_tpu.ops.rasterize import render_rgbd_sil as jrender
+    from isogs_slam_tpu_torch.scripts import test_installation as ti
+    assert ti.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[OK]") == 6 and "[FAIL]" not in out
+    rng = np.random.default_rng(0)
+    n = 500
+    means = jnp.asarray(rng.uniform(-1, 1, (n, 3)), jnp.float32
+                        ).at[:, 2].add(2.5)
+    rgb = jnp.asarray(rng.uniform(0, 1, (n, 3)), jnp.float32)
+    im, d, _, _, _ = jax.jit(lambda m: jrender(
+        m, jnp.tile(jnp.array([1., 0, 0, 0]), (n, 1)),
+        jnp.full((n, 3), np.log(0.08)), jnp.ones((n, 1)), rgb,
+        jnp.ones(n, bool),
+        JCamera(width=64, height=48, fx=48., fy=48., cx=31.5, cy=23.5),
+        JRasterConfig(max_per_tile=128, tile_chunk=12)))(means)
+    (got,) = _numbers(out, "loss")
+    np.testing.assert_allclose(got, float(jnp.sum(im) + jnp.sum(d)),
+                               rtol=1e-6)
+
+
+def test_model_browser_text_listing_matches_reference(tmp_path, capsys):
+    """model_browser --text lists the same runs, checkpoint counts, latest
+    frames and eval numbers as the JAX browser on a toy experiments tree
+    (a run with checkpoints and an eval summary, one with a final
+    params.npz only, one with neither, which is not listed)."""
+    from isogs_slam_tpu.scripts import model_browser as jmb
+    from isogs_slam_tpu_torch.scripts import model_browser as mb
+    root = tmp_path / "experiments"
+    a = root / "Replica" / "room0_0"
+    (a / "eval").mkdir(parents=True)
+    for f in (0, 5, 10):
+        np.savez(a / f"params{f}.npz", means3D=np.zeros((1, 3)))
+    (a / "eval" / "eval_summary.json").write_text(json.dumps(
+        {"Final Average ATE RMSE (cm)": 0.123, "Average PSNR": 33.5}))
+    b = root / "iPhone_Captures" / "online_demo_0"
+    b.mkdir(parents=True)
+    np.savez(b / "params.npz", means3D=np.zeros((1, 3)))
+    (root / "Replica" / "empty_0").mkdir()
+    assert mb.scan_runs(str(root)) == jmb.scan_runs(str(root))
+    assert len(mb.scan_runs(str(root))) == 2
+    out = []
+    for mod in (jmb, mb):
+        mod.main(["--root", str(root), "--text"])
+        out.append(capsys.readouterr().out)
+    assert out[0] == out[1] and "33.50" in out[1]
+    mb.main(["--root", str(tmp_path / "none"), "--text"])
+    assert "no runs with checkpoints" in capsys.readouterr().out

@@ -473,3 +473,74 @@ def test_zbuffer_cuda_matches_cpu(dev):
     dg = render_mesh_depth(v, f, np.eye(4), K, 80, 64, device=dev)
     np.testing.assert_array_equal(dg > 0, dc > 0)
     np.testing.assert_allclose(dg, dc, rtol=1e-5)
+
+
+def test_eval_sh_cuda_matches_cpu(dev):
+    """The SH colour pre-pass of the viewers on the card against the CPU,
+    every degree: within 1e-6 plus two f32 roundings of each colour (the
+    card's elementwise kernels contract multiply-adds; measured 1.2e-6 on
+    colours up to ~10)."""
+    from isogs_slam_tpu_torch.ops.sh import eval_sh, sh_colors_for_pose
+    rng = np.random.default_rng(0)
+    shf = torch.tensor(rng.normal(size=(4096, 48)), dtype=torch.float32)
+    dirs = torch.tensor(rng.normal(size=(4096, 3)), dtype=torch.float32)
+    center = torch.tensor([0.1, -0.2, 0.3])
+    pairs = [(eval_sh(shf, dirs, deg),
+              eval_sh(shf.to(dev), dirs.to(dev), deg).cpu())
+             for deg in range(4)]
+    pairs.append((sh_colors_for_pose(shf, dirs, center),
+                  sh_colors_for_pose(shf.to(dev), dirs.to(dev),
+                                     center.to(dev)).cpu()))
+    for a, b in pairs:
+        torch.testing.assert_close(b, a, rtol=2 ** -22, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_sh", [False, True])
+def test_viewer_render_cuda_matches_cpu(dev, tmp_path, with_sh):
+    """The viewers' path (load_scene -> make_render_fn -> render_w2c, the
+    forward kernel A without a gradient) on the card against the CPU, with
+    and without higher SH bands: image and silhouette within 1e-5, depth
+    within 1e-4 (as the fused render's test)."""
+    from isogs_slam_tpu_torch.io.checkpoints import save_checkpoint
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.ops.rasterize import RasterConfig
+    from isogs_slam_tpu_torch.viz_scripts.common import (load_scene,
+                                                         make_render_fn,
+                                                         render_w2c)
+    rng = np.random.default_rng(0)
+    n, H, W = 2000, 64, 80
+    means = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    means[:, 2] += 2.5
+    gauss = {"means3D": means,
+             "rgb_colors": rng.uniform(0, 1, (n, 3)).astype(np.float32),
+             "unnorm_rotations": rng.normal(size=(n, 4)).astype(np.float32),
+             "logit_opacities": rng.uniform(-1, 3, (n, 1)).astype(
+                 np.float32),
+             "log_scales": np.log(rng.uniform(0.02, 0.1, (n, 3))).astype(
+                 np.float32)}
+    if with_sh:
+        gauss["sh_coeffs_flat"] = (0.3 * rng.normal(size=(n, 48))).astype(
+            np.float32)
+    K = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]],
+                 np.float32)
+    rots = (np.array([1.0, 0, 0, 0])[None, :, None]
+            + 0.05 * rng.normal(size=(1, 4, 3))).astype(np.float32)
+    trans = (0.05 * rng.normal(size=(1, 3, 3))).astype(np.float32)
+    save_checkpoint(str(tmp_path), 2, gauss, rots, trans, np.zeros(n), K,
+                    np.eye(4), W, H, [np.eye(4)] * 3, [0])
+    outs = []
+    for device in ("cpu", dev):
+        st, cam, est, _, _, shf = load_scene(str(tmp_path), return_sh=True,
+                                             device=device)
+        assert (shf is not None) == with_sh
+        fn = make_render_fn(cam, RasterConfig(max_per_tile=512))
+        _cuda.reset_launches()
+        outs.append([[x.cpu() for x in render_w2c(fn, st, w2c, sh_flat=shf)]
+                     for w2c in est])
+    assert any(k.startswith("composite_fwd") for k in _cuda.LAUNCHES)
+    assert not any(k.startswith("composite_bwd") for k in _cuda.LAUNCHES)
+    for (im1, d1, s1), (im2, d2, s2) in zip(*outs):
+        assert float(im1.max()) > 0.01
+        assert float((im1 - im2).abs().max()) < 1e-5
+        assert float((d1 - d2).abs().max()) < 1e-4
+        assert float((s1 - s2).abs().max()) < 1e-5

@@ -25,19 +25,24 @@ def test_port_imports_with_jax_blocked():
         assert "isogs_slam_tpu_torch.slam.icp" in names
         assert "isogs_slam_tpu_torch.mesh.density" in names
         assert "isogs_slam_tpu_torch.native_ext" in names
+        for name in ("ingest.sources", "viz_scripts.online_recon",
+                     "scripts.iphone_demo", "scripts.test_installation",
+                     "tools.synth_to_replica", "ops.sh"):
+            assert "isogs_slam_tpu_torch." + name in names, name
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 67
+    assert int(out.stdout.strip()) >= 81
 
 
 def test_port_imports_without_image_and_plot_libraries():
-    """Every module of the port, the dataset registry and the eval helpers
-    among them, imports on a machine without imageio, PIL, cv2, matplotlib
-    and yaml; the synthetic dataset is constructed there too."""
+    """Every module of the port, the dataset registry, the eval helpers and
+    the viewers among them, imports on a machine without imageio, PIL,
+    cv2, matplotlib and yaml; the synthetic dataset is constructed there
+    too."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("jax", "imageio", "PIL", "cv2", "matplotlib", "yaml"):
