@@ -23,6 +23,7 @@ that remains is a known defect of the reference, reproduced here.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -203,14 +204,17 @@ def density_grid(means, log_scales, unnorm_rotations, logit_opacities,
 _PAIR_BUDGET = 1 << 28
 
 
-def _dens_for_blocks(table, lists, count, spec: GridSpec, block_chunk: int):
+def _dens_for_blocks(table, lists, count, spec: GridSpec, block_chunk: int,
+                     base_block: int = 0):
     """Density of every block, one [P, 10] @ [10, K] product per block,
     up to `block_chunk` blocks per batched matmul. The reference pads every
     block to the full list length K, empty blocks included; here the blocks
     without candidates are left at 0 and the others go in order of their
     candidate count, each chunk only as wide as its longest list and only
     as many blocks as _PAIR_BUDGET allows at that width: the same terms in
-    each voxel's sum, without the padded slots' work."""
+    each voxel's sum, without the padded slots' work. `lists` / `count`
+    may be a contiguous range of the blocks that starts at block
+    `base_block` (density_grid_sharded)."""
     dev = table.device
     B = spec.block
     P = B * B * B
@@ -233,9 +237,10 @@ def _dens_for_blocks(table, lists, count, spec: GridSpec, block_chunk: int):
         kc = widths[min(c0 + c, L) - 1]
         bidx = live[c0: c0 + c]
         c0 += c
-        bx = (bidx // (bd[1] * bd[2]))[:, None]
-        by = ((bidx // bd[2]) % bd[1])[:, None]
-        bz = (bidx % bd[2])[:, None]
+        gidx = bidx + base_block
+        bx = (gidx // (bd[1] * bd[2]))[:, None]
+        by = ((gidx // bd[2]) % bd[1])[:, None]
+        bz = (gidx % bd[2])[:, None]
         px = origin[0] + (bx * B + ox).float() * spacing[0]    # [c, P]
         py = origin[1] + (by * B + oy).float() * spacing[1]
         pz = origin[2] + (bz * B + oz).float() * spacing[2]
@@ -253,6 +258,35 @@ def _dens_for_blocks(table, lists, count, spec: GridSpec, block_chunk: int):
         del ball
         dens[bidx] = quad.masked_fill_(valid.logical_not_(), 0.0).sum(dim=-1)
     return dens
+
+
+@torch.no_grad()
+def density_grid_sharded(means, log_scales, unnorm_rotations,
+                         logit_opacities, alive, spec: GridSpec,
+                         max_isect: int, mesh, max_per_block: int = 256,
+                         truncate_sigma: float = 3.0,
+                         min_scale: float = 1e-5, block_chunk: int = 32):
+    """density_grid with the block axis sharded over the ranks of `mesh`
+    (parallel/dist.py): blocks are independent (the reference's per-block
+    host loop, extract_mesh_fast.py:191-386), so each rank evaluates a
+    contiguous block range against the replicated coefficient table and
+    the grid is reassembled from the all-gathered shards. Binning runs
+    replicated (one sort; a small fraction of the density pass)."""
+    from ..parallel.dist import all_gather_shards, shard_range
+    table, lists, count, overflow = _prep_density_table(
+        means, log_scales, unnorm_rotations, logit_opacities, alive, spec,
+        max_isect, max_per_block, truncate_sigma, min_scale)
+    nb = spec.num_blocks
+    lo, hi, per = shard_range(nb, mesh)
+    hi_r = min(hi, nb)
+    P = spec.block ** 3
+    local = torch.zeros((per, P), dtype=torch.float32, device=table.device)
+    if hi_r > lo:
+        local[: hi_r - lo] = _dens_for_blocks(
+            table, lists[lo:hi_r], count[lo:hi_r], spec, block_chunk,
+            base_block=lo)
+    dens = all_gather_shards(local, mesh)[:nb]
+    return _assemble(dens, spec), overflow
 
 
 def _assemble(dens, spec: GridSpec):
@@ -276,16 +310,21 @@ def compute_density(params_np: dict, voxel_size: float = 0.02,
     """Host-facing wrapper: checkpoint params dict -> (density np [dims],
     GridSpec), computed on `device` ("cuda" unless the caller asks for
     "cpu"). Grows max_isect and max_per_block until nothing overflows (at
-    most 6 rounds). shard_devices > 1 (the reference's
-    density_grid_sharded) needs parallel/, which is not ported. `info`, when
-    given, receives the capacities the pass ended at (max_isect,
-    max_per_block), its growth rounds and the overflow left."""
-    if shard_devices > 1:
-        raise NotImplementedError(
-            f"shard_devices={shard_devices}: the sharded density pass "
-            f"(density_grid_sharded) waits for parallel/, which is not "
-            f"ported to this package; use shard_devices=0")
+    most 6 rounds). shard_devices > 1 shards the block axis over that many
+    ranks of the process group (density_grid_sharded), clamped to the
+    world size as the reference clamps to its devices; at 1 the serial
+    pass runs. `info`, when given, receives the capacities the pass ended
+    at (max_isect, max_per_block), its growth rounds, the overflow left
+    and the ranks it ran on."""
+    from ..parallel.dist import make_mesh, rank_device, world_size
     dev = resolve_device(device)
+    nd = min(int(shard_devices), world_size())
+    if nd > 1:
+        dev = rank_device(dev)
+        grid_fn = functools.partial(density_grid_sharded,
+                                    mesh=make_mesh(nd, dev))
+    else:
+        grid_fn = density_grid
     means = np.asarray(params_np["means3D"], np.float32)
     spec = make_grid(means, voxel_size, padding, block_size)
     n = means.shape[0]
@@ -299,10 +338,10 @@ def compute_density(params_np: dict, voxel_size: float = 0.02,
             f32(params_np["logit_opacities"]),
             torch.ones((n,), dtype=torch.bool, device=dev))
     min_scale = max(1e-5, min_scale_limit)
-    dens, overflow = density_grid(*args, spec, max_isect,
-                                  max_per_block=max_per_block,
-                                  truncate_sigma=truncate_sigma,
-                                  min_scale=min_scale)
+    dens, overflow = grid_fn(*args, spec, max_isect,
+                             max_per_block=max_per_block,
+                             truncate_sigma=truncate_sigma,
+                             min_scale=min_scale)
     # demand-driven capacity: truncated block lists under-report density
     # near block borders and the marching pass then opens seams there. The
     # scalar overflow conflates expansion-slot (max_isect) and per-block
@@ -319,13 +358,14 @@ def compute_density(params_np: dict, voxel_size: float = 0.02,
         print(f"[mesh] {int(overflow)} block-candidate slots overflowed; "
               f"growing max_isect -> {max_isect}, max_per_block -> "
               f"{max_per_block} (recompiling)")
-        dens, overflow = density_grid(*args, spec, max_isect,
-                                      max_per_block=max_per_block,
-                                      truncate_sigma=truncate_sigma,
-                                      min_scale=min_scale)
+        dens, overflow = grid_fn(*args, spec, max_isect,
+                                 max_per_block=max_per_block,
+                                 truncate_sigma=truncate_sigma,
+                                 min_scale=min_scale)
     if info is not None:
         info.update(max_isect=max_isect, max_per_block=max_per_block,
-                    rounds=rounds, overflow=int(overflow))
+                    rounds=rounds, overflow=int(overflow),
+                    shard_devices=max(nd, 1))
     if int(overflow) > 0:
         print(f"[mesh] WARNING: {int(overflow)} slots still overflow "
               f"after growth; density is truncated near block borders")

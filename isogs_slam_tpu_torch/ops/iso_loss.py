@@ -19,9 +19,12 @@ from ..utils.transforms import normalize
 
 
 def flat_loss(log_scales: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
-    """Mean over alive Gaussians of min(exp(log_scales)), clamped at 1e-5."""
+    """Mean over alive Gaussians of min(exp(log_scales)), clamped at 1e-5.
+    At a tie (an isotropic Gaussian's three equal scales) the gradient is
+    split evenly among the tied axes, as jnp.min's is (torch.amin; the
+    indices of torch.min would give it all to one axis)."""
     scales = torch.clamp(torch.exp(log_scales), min=1e-5)
-    mins = torch.min(scales, dim=1).values
+    mins = torch.amin(scales, dim=1)
     n = torch.clamp(torch.sum(alive.to(mins.dtype)), min=1.0)
     return torch.sum(torch.where(alive, mins, torch.zeros_like(mins))) / n
 

@@ -7,6 +7,11 @@ component cleaning + PLY/OBJ/STL/TXT export.
         [--checkpoint params800.npz] [--voxel-size 0.02] [--iso-level 1.0]
         [--padding 0.5] [--block-size 16] [--truncate-sigma 3.0]
         [--no-cleaning] [--output mesh.ply] [--device cpu]
+        [--shard-devices N]
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m isogs_slam_tpu_torch.scripts.extract_mesh_fast <config.py> \
+        --shard-devices 2
 
 The density pass runs on config["primary_device"]: "cuda" unless the
 config or `--device cpu` says otherwise. A relative `--output` is joined
@@ -26,6 +31,7 @@ from ..mesh.density import compute_density
 from ..mesh.marching import (largest_component, marching_tetrahedra,
                              mesh_stats, vertex_normals)
 from ..mesh.meshio import write_obj, write_ply_mesh, write_stl
+from ..parallel import dist as pdist
 from ..slam.config import load_experiment_config
 from ..slam.pipeline import primary_device
 
@@ -59,7 +65,9 @@ def extract_mesh_from_params(params: dict, voxel_size=0.02, iso_level=1.0,
                              clean=True, max_per_block=256,
                              shard_devices=0, device="cuda"):
     """checkpoint params dict -> (verts, faces, density_stats dict); the
-    density pass runs on `device`."""
+    density pass runs on `device` (sharded over `shard_devices` ranks of
+    the process group when > 1). Rank 0 alone marches the grid: the other
+    ranks of a sharded pass return (None, None, stats)."""
     # anti-pancaking: min scale = half voxel
     dens, spec = compute_density(
         params, voxel_size=voxel_size, padding=padding,
@@ -70,6 +78,8 @@ def extract_mesh_from_params(params: dict, voxel_size=0.02, iso_level=1.0,
              "density_max": float(dens.max()),
              "density_mean": float(dens.mean()),
              "dims": list(spec.dims)}
+    if not pdist.is_main():
+        return None, None, stats
     verts, faces = marching_tetrahedra(dens, iso_level,
                                        spacing=spec.spacing,
                                        origin=spec.origin)
@@ -92,7 +102,10 @@ def main(argv=None):
     p.add_argument("--max-per-block", type=int, default=256)
     p.add_argument("--shard-devices", type=int, default=0,
                    help="shard the density block axis over this many "
-                        "devices: needs parallel/, not ported (> 1 raises)")
+                        "ranks (launch with python -m "
+                        "torch.distributed.run --nproc-per-node N; "
+                        "clamped to the world size, rank 0 writes the "
+                        "mesh)")
     p.add_argument("--no-cleaning", action="store_true")
     p.add_argument("--no-show", action="store_true",
                    help="accepted for CLI parity; no interactive viewer")
@@ -104,11 +117,16 @@ def main(argv=None):
     if args.device is not None:
         config["primary_device"] = args.device
     dev = primary_device(config)
+    if args.shard_devices > 1:
+        dev = pdist.init_distributed(dev)
+    main_rank = pdist.is_main()
     ckpt_path, result_dir, frame = resolve_checkpoint(config,
                                                       args.checkpoint)
-    print(f"Loading checkpoint: {ckpt_path}")
+    if main_rank:
+        print(f"Loading checkpoint: {ckpt_path}")
     params = load_checkpoint(ckpt_path)
-    print(f"Loaded {params['means3D'].shape[0]} Gaussians")
+    if main_rank:
+        print(f"Loaded {params['means3D'].shape[0]} Gaussians")
 
     t0 = time.time()
     verts, faces, dstats = extract_mesh_from_params(
@@ -118,6 +136,10 @@ def main(argv=None):
         max_per_block=args.max_per_block, shard_devices=args.shard_devices,
         device=dev)
     dt = time.time() - t0
+    if not main_rank:
+        # the other ranks computed their share of the grid; rank 0 writes
+        pdist.shutdown()
+        return None
     st = mesh_stats(verts, faces)
     print(f"Density stats: {dstats}")
     print(f"Extracted mesh: {st['vertices']} vertices, {st['faces']} faces "
@@ -158,6 +180,7 @@ def main(argv=None):
             f.write(f"{k}: {v}\n")
         f.write(json.dumps(dstats) + "\n")
     print(f"Exported log TXT: {txt_path}")
+    pdist.shutdown()
     return out_ply
 
 

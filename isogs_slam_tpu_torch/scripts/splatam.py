@@ -6,14 +6,29 @@
 Loads the experiment config module, seeds, copies the config into the run
 directory for provenance, runs SLAM on config["primary_device"] ("cuda"
 unless the config or `--device cpu` says otherwise), then evaluates.
+
+Multi-device (config["parallel"]["map_views"] / ["track_tiles"] > 1): one
+process per rank,
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m isogs_slam_tpu_torch.scripts.splatam configs/replica/splatam_mc.py
+
+over NCCL when each rank has a card of its own, gloo when the ranks share
+one card (or run on the CPU). Rank 0 alone writes the run directory
+(checkpoints, metrics_log.csv, eval, runtime stats) and prints the progress
+lines; the other ranks hold the same state and wait for it at the end.
+Without torch.distributed.run the knobs clamp to one rank and the sharded
+programs run on it.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
+from ..parallel import dist as pdist
 from ..slam.config import copy_config_for_provenance, load_experiment_config
-from ..slam.pipeline import SLAM
+from ..slam.pipeline import SLAM, primary_device
 from ..utils.common import seed_everything
 
 
@@ -69,9 +84,24 @@ def main(argv=None):
     if args.device is not None:
         config["primary_device"] = args.device
     seed_everything(config.get("seed", 0))
+    # under torch.distributed.run: join the process group; the ranks other
+    # than 0 print nothing further (rank 0 prints the progress lines)
+    pdist.init_distributed(primary_device(config))
+    main_rank = pdist.is_main()
+    stdout = sys.stdout
+    if not main_rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        return _run(args, config, main_rank)
+    finally:
+        if not main_rank:
+            sys.stdout.close()
+            sys.stdout = stdout
 
+
+def _run(args, config: dict, main_rank: bool):
     results_dir = os.path.join(config["workdir"], config["run_name"])
-    if not config.get("load_checkpoint", False):
+    if main_rank and not config.get("load_checkpoint", False):
         copy_config_for_provenance(args.experiment, results_dir)
         if args.overrides:
             os.makedirs(results_dir, exist_ok=True)
@@ -81,7 +111,7 @@ def main(argv=None):
     slam = SLAM(config)
     slam.run(end_at=args.end_at)
 
-    if not args.no_eval:
+    if main_rank and not args.no_eval:
         from ..eval.eval_helpers import eval_sequence
         # with --end-at, only frames the run actually processed are
         # evaluated (untracked poses beyond it are meaningless)
@@ -94,6 +124,8 @@ def main(argv=None):
             add_new_gaussians=config["mapping"]["add_new_gaussians"],
             eval_every=config.get("eval_every", 1),
             num_frames=n_eval)
+    # the other ranks wait for rank 0's eval before the group closes
+    pdist.shutdown()
     return slam
 
 

@@ -158,6 +158,27 @@ def _prune_mask(params: GaussianParams, alive, scene_radius, it: int,
     return remove & alive
 
 
+def build_phase_iso(params: GaussianParams, alive, lcfg: LossConfig,
+               generator: torch.Generator | None = None, q_idx=None,
+               pool: bool = True):
+    """A phase's iso hash grid (when the KNN is the hash) and KNN pool
+    (when `pool`), built once at the phase's start: Gaussian drift within
+    a phase is far below the cell size."""
+    grid = None
+    if lcfg.knn_method == "hash":
+        cell = default_cell_size(params.log_scales, alive)
+        grid = build_hash_grid(params.means3d, alive, cell,
+                               lcfg.hash_table_size)
+    if not pool:
+        return grid, None
+    return grid, build_iso_knn_pool(
+        params.means3d, params.log_scales, alive, lcfg.iso_pool_size,
+        lcfg.iso_k, hash_cap=lcfg.hash_cap,
+        hash_table_size=lcfg.hash_table_size, grid=grid, q_idx=q_idx,
+        generator=generator, knn_method=lcfg.knn_method,
+        knn_block=lcfg.knn_block)
+
+
 @torch.no_grad()
 def build_phase_iso_pool(params: GaussianParams, alive, lcfg: LossConfig,
                          generator: torch.Generator | None = None,
@@ -167,17 +188,79 @@ def build_phase_iso_pool(params: GaussianParams, alive, lcfg: LossConfig,
     one pool for several phases (mapping.iso_pool_refresh_phases > 1):
     both queries and neighbours are alive-masked when the loss reads
     them, so a kept pool only leaves rows added since out of the sample."""
-    grid = None
-    if lcfg.knn_method == "hash":
-        cell = default_cell_size(params.log_scales, alive)
-        grid = build_hash_grid(params.means3d, alive, cell,
-                               lcfg.hash_table_size)
-    return build_iso_knn_pool(
-        params.means3d, params.log_scales, alive, lcfg.iso_pool_size,
-        lcfg.iso_k, hash_cap=lcfg.hash_cap,
-        hash_table_size=lcfg.hash_table_size, grid=grid, q_idx=q_idx,
-        generator=generator, knn_method=lcfg.knn_method,
-        knn_block=lcfg.knn_block)
+    return build_phase_iso(params, alive, lcfg, generator, q_idx)[1]
+
+
+@torch.no_grad()
+def bin_phase_slots(p0: GaussianParams, alive0, kf_quats, kf_transl, slots,
+                    cam: Camera, rcfg: RasterConfig, mcfg: MappingConfig,
+                    emit: bool) -> dict:
+    """{slot: Binning}: the frozen tile lists of a phase's keyframe slots,
+    binned once at the phase's start map p0. While a binning is reused
+    for the phase the cull budgets are the rect margin in pixels, and an
+    opacity logit rises by at most 3.2 lr per Adam step ((1 - b1) /
+    sqrt(1 - b2): a sign flip after near-zero gradients)."""
+    projs = []
+    for slot in slots:
+        mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations,
+                                    kf_quats[slot], kf_transl[slot],
+                                    gaussians_grad=False, camera_grad=False)
+        projs.append(project_gaussians(mc, qc, p0.log_scales, alive0, cam,
+                                       margin_px=mcfg.bin_margin_px))
+    budget = dict(
+        emit_exp=emit, opacity=torch.sigmoid(p0.logit_opacities[:, 0]),
+        cull_slack_px=mcfg.bin_margin_px,
+        cull_logit_drift=3.2 * mcfg.lr_logit_opacities * mcfg.num_iters)
+    if mcfg.vmap_bins:
+        return dict(zip(slots, bin_gaussians_batched(projs, cam, rcfg,
+                                                     **budget)))
+    return {slot: bin_gaussians(proj, cam, rcfg, **budget)
+            for slot, proj in zip(slots, projs)}
+
+
+def phase_bin_stats(bins, device) -> torch.Tensor:
+    """[true-candidate intersections dropped by the per-tile cap, total
+    and max intersections] over the binnings `bins` (int64)."""
+    if not bins:
+        return torch.zeros(3, dtype=torch.int64, device=device)
+    n_isect = torch.stack([b.n_isect.to(torch.int64) for b in bins])
+    return torch.stack([
+        sum(b.n_true_overflow.to(torch.int64) for b in bins),
+        n_isect.sum(), n_isect.max()])
+
+
+def merge_max_radius(st: MapState, radii) -> MapState:
+    """seen / max_2D_radius bookkeeping (splatam.py:751-753): the rows a
+    render saw (radius > 0) keep the larger of their radii."""
+    max_r = torch.where(radii > 0,
+                        torch.maximum(radii.to(st.max_2d_radius.dtype),
+                                      st.max_2d_radius),
+                        st.max_2d_radius)
+    return st._replace(max_2d_radius=max_r)
+
+
+def prune_and_reset(st: MapState, opt, view_it: int, pc: PruneConfig,
+                    n_views: int = 1):
+    """The schedule's prune at view count `view_it` (before the optimizer
+    step, splatam.py:1461-1467), then the opacity reset when a multiple of
+    reset_opacities_every falls in [view_it, view_it + n_views): the
+    parameter is replaced and its Adam moments zeroed
+    (slam_external.py:183-186). -> (state, opt)."""
+    st = prune(st, _prune_mask(st.params, st.alive, st.scene_radius,
+                               view_it, pc))
+    if pc.reset_opacities and view_it > 0 and \
+            view_it % max(pc.reset_opacities_every, 1) < n_views:
+        # log(0.01 / 0.99) in f32, as the reference computes it
+        reset_val = float(torch.log(torch.tensor(0.01 / 0.99)))
+        st = st._replace(params=st.params._replace(
+            logit_opacities=torch.full_like(st.params.logit_opacities,
+                                            reset_val)))
+        j = GaussianParams._fields.index("logit_opacities")
+        mu, nu = list(opt.mu), list(opt.nu)
+        mu[j] = torch.zeros_like(mu[j])
+        nu[j] = torch.zeros_like(nu[j])
+        opt = opt._replace(mu=tuple(mu), nu=tuple(nu))
+    return st, opt
 
 
 def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
@@ -232,48 +315,17 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
         emit = rcfg.resolve_bwd_mode() == "segreduce"
 
     with torch.no_grad():
-        slots = sorted(set(iter_slots))
-        projs = []
-        for slot in slots:
-            mc, qc = transform_to_frame(p0.means3d, p0.unnorm_rotations,
-                                        kf_quats[slot], kf_transl[slot],
-                                        gaussians_grad=False,
-                                        camera_grad=False)
-            projs.append(project_gaussians(mc, qc, p0.log_scales, alive0,
-                                           cam, margin_px=mcfg.bin_margin_px))
-        # cull budgets while a binning is reused: the rect margin in
-        # pixels; an opacity logit rises by at most 3.2 lr per Adam step
-        # ((1 - b1) / sqrt(1 - b2): a sign flip after near-zero gradients)
-        budget = dict(
-            emit_exp=emit, opacity=torch.sigmoid(p0.logit_opacities[:, 0]),
-            cull_slack_px=mcfg.bin_margin_px,
-            cull_logit_drift=3.2 * mcfg.lr_logit_opacities * mcfg.num_iters)
-        if mcfg.vmap_bins:
-            bins = dict(zip(slots, bin_gaussians_batched(projs, cam, rcfg,
-                                                         **budget)))
-        else:
-            bins = {slot: bin_gaussians(proj, cam, rcfg, **budget)
-                    for slot, proj in zip(slots, projs)}
-        del projs
-        n_isect = torch.stack([b.n_isect for b in bins.values()])
-        bin_stats = torch.stack([
-            sum(b.n_true_overflow for b in bins.values()),
-            n_isect.sum(), n_isect.max()])
-
-        # the iso hash grid once per phase (Gaussian drift within a phase
-        # is far below the cell size); none when a prebuilt pool is given
+        bins = bin_phase_slots(p0, alive0, kf_quats, kf_transl,
+                               sorted(set(iter_slots)), cam, rcfg, mcfg,
+                               emit)
+        bin_stats = phase_bin_stats(list(bins.values()), dev)
+        # none when a prebuilt pool is given (the pool path never consults
+        # the grid)
         iso_grid = None
-        if iso_pool is None and lcfg.calc_iso and lcfg.knn_method == "hash":
-            cell = default_cell_size(p0.log_scales, alive0)
-            iso_grid = build_hash_grid(p0.means3d, alive0, cell,
-                                       lcfg.hash_table_size)
-        if iso_pool is None and lcfg.calc_iso and lcfg.iso_pool_size > 0:
-            iso_pool = build_iso_knn_pool(
-                p0.means3d, p0.log_scales, alive0, lcfg.iso_pool_size,
-                lcfg.iso_k, hash_cap=lcfg.hash_cap,
-                hash_table_size=lcfg.hash_table_size, grid=iso_grid,
-                q_idx=pool_q_idx, generator=generator,
-                knn_method=lcfg.knn_method, knn_block=lcfg.knn_block)
+        if iso_pool is None and lcfg.calc_iso:
+            iso_grid, iso_pool = build_phase_iso(
+                p0, alive0, lcfg, generator, pool_q_idx,
+                pool=lcfg.iso_pool_size > 0)
 
         if n_sub:
             # the phase's keyframes in the compositor's tile layout, once;
@@ -312,8 +364,6 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
             generator=generator, means2d_offset=m2d, iso_grid=iso_grid)
 
     lrs = mcfg.lrs()
-    # log(0.01 / 0.99) in f32, as the reference computes it
-    reset_val = float(torch.log(torch.tensor(0.01 / 0.99)))
     st = state
     opt = optim.init(state.params, lazy=subsample and mcfg.lazy_adam)
     logs = []
@@ -339,28 +389,9 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
                     else split_noise[it])
                 dens_counts += c
                 grads = grads[:-1]
-            # seen / max_2D_radius bookkeeping (splatam.py:751-753)
-            radii = out.radii.to(st.max_2d_radius.dtype)
-            max_r = torch.where(out.radii > 0,
-                                torch.maximum(radii, st.max_2d_radius),
-                                st.max_2d_radius)
-            st = st._replace(max_2d_radius=max_r)
-            # prune before the optimizer step (splatam.py:1461-1467)
-            st = prune(st, _prune_mask(st.params, st.alive,
-                                       st.scene_radius, it, pc))
-            params = st.params
-            if pc.reset_opacities and it > 0 and \
-                    it % max(pc.reset_opacities_every, 1) == 0:
-                # the parameter is replaced and its moments zeroed
-                # (slam_external.py:183-186)
-                params = params._replace(logit_opacities=torch.full_like(
-                    params.logit_opacities, reset_val))
-                j = GaussianParams._fields.index("logit_opacities")
-                mu, nu = list(opt.mu), list(opt.nu)
-                mu[j] = torch.zeros_like(mu[j])
-                nu[j] = torch.zeros_like(nu[j])
-                opt = opt._replace(mu=tuple(mu), nu=tuple(nu))
-            new_params, opt = optim.step(params, grads, opt, lrs,
+            st = merge_max_radius(st, out.radii)
+            st, opt = prune_and_reset(st, opt, it, pc)
+            new_params, opt = optim.step(st.params, grads, opt, lrs,
                                          eps=mcfg.eps)
             st = st._replace(params=new_params)
             logs.append(torch.stack([out.loss, out.im, out.depth, out.flat,

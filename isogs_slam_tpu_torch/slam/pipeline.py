@@ -23,6 +23,7 @@ config["seed"].
 from __future__ import annotations
 
 import csv
+import functools
 import json
 import os
 import time
@@ -35,7 +36,9 @@ from ..core import gaussians as G
 from ..core.camera import Camera
 from ..datasets import get_dataset, load_dataset_config
 from ..io import checkpoints as ckpt_io
+from ..ops import _cuda
 from ..ops.rasterize import RasterConfig
+from ..parallel import dist as pdist
 from ..utils.transforms import rotmat_to_quat
 from . import keyframes as KF
 from .config import inject_defaults
@@ -53,6 +56,13 @@ LOG_FIELDS = ["frame", "stage", "step", "loss", "image_loss", "depth_loss",
 # the cap escalates by default. Module-level so tests assert the shipped
 # default, not a local mirror of it.
 ADAPTIVE_MAX_PER_TILE_DEFAULT = True
+
+
+class _NoMetrics:
+    """MetricsCSV of a rank other than 0 (rank 0 alone writes files)."""
+
+    def append_block(self, *args):
+        pass
 
 
 class MetricsCSV:
@@ -243,19 +253,6 @@ def _tracking_cfg(config) -> TrackingConfig:
         cross_frame_margin_px=t.get("cross_frame_margin_px", 16.0))
 
 
-def _check_ported(config):
-    """Raise NotImplementedError, naming the knob, for a configuration this
-    package does not run yet (multi-device mapping or tracking); none is
-    silently ignored. Every knob of the rasterizer, the tracker and the
-    mapper runs."""
-    par = config.get("parallel", {})
-    for knob in ("map_views", "track_tiles"):
-        if int(par.get(knob, 0)) > 1:
-            raise NotImplementedError(
-                f"parallel.{knob} > 1 (multi-device) is not ported to the "
-                f"PyTorch package yet")
-
-
 class SLAM:
     """Stateful SLAM runner (construct once, call run()).
 
@@ -270,6 +267,10 @@ class SLAM:
         self.config = inject_defaults(config)
         cfg = self.config
         self.device = primary_device(cfg)
+        if pdist.world_size() > 1:
+            self.device = pdist.rank_device(self.device)
+        # rank 0 alone writes files and progress lines
+        self.is_main = pdist.is_main()
         from .experimental import warn_experimental
         warn_experimental(cfg)
 
@@ -294,7 +295,6 @@ class SLAM:
         self.lcfg_map = _loss_cfg_mapping(cfg)
         self.tcfg = _tracking_cfg(cfg)
         self.mcfg = _mapping_cfg(cfg)
-        _check_ported(cfg)
 
         self.output_dir = os.path.join(cfg["workdir"], cfg["run_name"])
         self.eval_dir = os.path.join(self.output_dir, "eval")
@@ -386,13 +386,52 @@ class SLAM:
         self._iso_pool_age = 0
         self.online_eval = None
         self._compact_every = cfg.get("compact_every", 50)
+        # multi-device mapping over the ranks of the process group
+        # (config["parallel"]["map_views"]): B keyframe views per Adam step,
+        # one per rank (parallel/sharded.py). The device count is the world
+        # size; at world size 1 the B = 1 view phase still runs, as the
+        # reference builds a 1-device mesh
+        par = cfg.get("parallel", {})
+        world = pdist.world_size()
+        self._map_views = int(par.get("map_views", 0))
+        self._mv_mesh = self._mv_phase = None
+        if self._map_views > 1:
+            if self._map_views > world:
+                print(f"[parallel] map_views {self._map_views} > "
+                      f"{world} devices; clamping")
+                self._map_views = world
+            self._mv_mesh = pdist.make_mesh(self._map_views, self.device)
+            self._build_mv_phase()
+        # multi-device tracking over the ranks
+        # (config["parallel"]["track_tiles"]): the whole per-frame Adam
+        # pose loop runs with the compositing tiles sharded
+        # (parallel/track_sharded.py); programs are cached per (camera,
+        # rcfg, lcfg, tcfg) so pyramid levels and isect-cap growth get
+        # their own
+        self._track_tiles = int(par.get("track_tiles", 0))
+        self._tt_mesh = None
+        self._tt_cache = {}
+        if self._track_tiles > 1:
+            if self._track_tiles > world:
+                print(f"[parallel] track_tiles {self._track_tiles} > "
+                      f"{world} devices; clamping")
+                self._track_tiles = world
+            self._tt_mesh = pdist.make_mesh(self._track_tiles, self.device)
+        # the whole world, for the collectives of the serial paths at
+        # world size > 1 (rank 0's results broadcast) and the replicas'
+        # check
+        self._world_mesh = (pdist.make_mesh(None, self.device)
+                            if world > 1 else None)
         # cross-frame tracking tile-list cache; invalidated on every map
-        # edit (densify / mapping / compaction / growth)
+        # edit (densify / mapping / compaction / growth). The tile-sharded
+        # tracker bins at the initial pose itself every frame, so the
+        # cache is a serial-path feature
         self._track_bins = (BinningReuse(
             self.tracking_cam, self.rcfg_track,
             margin_px=self.tcfg.cross_frame_margin_px,
             slack_px=self.tcfg.bin_margin_px)
             if self.tcfg.reuse_binning and not self.tcfg.rebin_every_iter
+            and self._tt_mesh is None
             else None)
 
     # ------------------------------------------------------------- helpers
@@ -403,6 +442,44 @@ class SLAM:
 
     def _to_chw_frame(self, color, depth):
         return _to_chw_frame(color, depth, self.device)
+
+    def _build_mv_phase(self):
+        """(Re)build the view-parallel mapping phase on the current raster
+        config (at start, isect-cap growth and the K escalation)."""
+        if self._mv_mesh is not None:
+            from ..parallel.sharded import make_multiview_map_phase
+            self._mv_phase = make_multiview_map_phase(
+                self._mv_mesh, self.cam, self.rcfg, self.lcfg_map,
+                self.mcfg)
+
+    def _broadcast_state(self):
+        """Rank 0's map state on every rank: after a serial mapping phase at
+        world size > 1 (its iso loss scatters with atomics, and the stripe
+        routes below the crossover add rows with index_add_, so two ranks
+        need not round alike)."""
+        if self._world_mesh is None:
+            return
+        st = self.state
+        for t in (*st.params, st.alive, st.timestep, st.max_2d_radius,
+                  st.means2d_grad_accum, st.denom, st.hwm, st.scene_radius):
+            if torch.is_tensor(t):
+                pdist.broadcast_(t, self._world_mesh)
+
+    def replica_max_diff(self) -> float:
+        """max over ranks of |x - rank 0's x| over the map state, the last
+        mapping phase's Adam moments, the poses and the keyframe buffer's
+        poses: 0.0 when the replicas are equal bit for bit (0.0 at world
+        size 1)."""
+        if self._world_mesh is None:
+            return 0.0
+        st = self.state
+        ts = [*st.params, st.alive, st.max_2d_radius, st.hwm,
+              torch.as_tensor(self.cam_rots), torch.as_tensor(self.cam_trans),
+              self.kf.quats, self.kf.trans]
+        opt = getattr(self._mv_phase, "last_opt", None)
+        if opt is not None:
+            ts += [*opt.mu, *opt.nu]
+        return pdist.replica_max_diff(ts, self._world_mesh)
 
     def _pose(self, time_idx):
         q = self.cam_rots[:, time_idx]
@@ -487,6 +564,7 @@ class SLAM:
         if self._track_bins is not None:
             self._track_bins.rcfg = self.rcfg_track  # captured at construction
             self._track_bins.invalidate()
+        self._build_mv_phase()
 
     def _note_isect_demand(self, observed_peak: int):
         """Grow the isect cap when a binning's true demand (n_isect is
@@ -608,11 +686,23 @@ class SLAM:
         binning = (self._track_bins.get(self.state.params, self.state.alive,
                                         q0, t0)
                    if self._track_bins is not None else None)
-        tracker = (track_frame_pyramid if self.tcfg.pyramid_levels > 1
-                   else track_frame)
+        if self._tt_mesh is not None:
+            base_fn = self._sharded_tracker
+            tracker = (functools.partial(track_frame_pyramid,
+                                         track_fn=base_fn)
+                       if self.tcfg.pyramid_levels > 1 else base_fn)
+        else:
+            tracker = (track_frame_pyramid if self.tcfg.pyramid_levels > 1
+                       else track_frame)
         res = tracker(self.state.params, self.state.alive, q0, t0,
                       im, depth, self.tracking_cam, self.rcfg_track,
                       self.lcfg_track, self.tcfg, binning=binning)
+        if self._tt_mesh is None and self._world_mesh is not None:
+            # every rank tracked alone: rank 0's pose on every rank (the
+            # tile-sharded tracker's is the same everywhere by construction)
+            pose = torch.cat([res.quat, res.trans]).contiguous()
+            pdist.broadcast_(pose, self._world_mesh)
+            res = res._replace(quat=pose[:4], trans=pose[4:])
         self.cam_rots[:, time_idx] = res.quat.cpu().numpy()
         self.cam_trans[:, time_idx] = res.trans.cpu().numpy()
         if binning is not None:
@@ -622,6 +712,24 @@ class SLAM:
         if self.tcfg.gn_iters > 0 and res.gn_accepted is not None:
             self.stats["gn_accepted"].append(int(res.gn_accepted))
         return res
+
+    def _sharded_tracker(self, params, alive, q0, t0, im, depth, cam,
+                         rcfg, lcfg, tcfg, binning=None):
+        """track_frame-signature dispatcher to the tile-sharded tracking
+        program (parallel/track_sharded.py), built lazily per (camera,
+        rcfg, lcfg, tcfg): pyramid levels and adaptive isect-cap growth
+        each get their own cached program. The cross-frame binning cache is
+        a serial-path feature (the sharded program bins itself)."""
+        assert binning is None, \
+            "parallel.track_tiles is incompatible with reuse_binning"
+        key = (cam, rcfg, lcfg, tcfg)
+        fn = self._tt_cache.get(key)
+        if fn is None:
+            from ..parallel.track_sharded import make_tracking_frame_sharded
+            fn = make_tracking_frame_sharded(self._tt_mesh, cam, rcfg, lcfg,
+                                             tcfg)
+            self._tt_cache[key] = fn
+        return fn(params, alive, q0, t0, im, depth)
 
     # ------------------------------------------------------ densification
     def densify(self, time_idx, im, depth):
@@ -661,6 +769,9 @@ class SLAM:
         print(f"\nSelected Keyframes at Frame {time_idx}: {sel_ids}")
         self.last_selected = sel_ids
 
+        if self._mv_phase is not None:
+            return self._map_multiview(slots, num_iters)
+
         # the keyframe of each iteration; map_frame bins each distinct
         # sampled slot once and indexes the library directly
         rand = self.rng.randint(0, len(slots), size=num_iters)
@@ -670,6 +781,7 @@ class SLAM:
             self.state, self.kf.colors, self.kf.depths, self.kf.quats,
             self.kf.trans, iter_slots, self.cam, self.rcfg, self.lcfg_map,
             self.mcfg, generator=self.gen, iso_pool=self._phase_iso_pool())
+        self._broadcast_state()
         self._check_tile_cap(bin_stats)
         if bin_stats.shape[0] > 3:
             n_clone, n_split, dropped = (int(x) for x in bin_stats[3:6])
@@ -679,6 +791,31 @@ class SLAM:
                 print(f"[densify] frame {time_idx}: {n_clone} cloned, "
                       f"{n_split} split, {dropped} rows dropped at capacity "
                       f"{self.state.capacity}")
+        return log
+
+    def _map_multiview(self, slots: list, num_iters: int):
+        """Multi-device mapping phase: B keyframe views per Adam step, one
+        per rank (parallel/sharded.py). num_iters counts view renders, so
+        one phase does ceil(num_iters / B) steps. The steps' keyframes are
+        drawn from the pipeline's numpy RNG (the same on every rank), the
+        phase's device draws from a seed drawn from its torch generator
+        (the same on every rank)."""
+        B = self._map_views
+        n_steps = -(-num_iters // B)
+        step_slots = np.empty((n_steps, B), np.int64)
+        for s in range(n_steps):
+            if len(slots) >= B:
+                pick = self.rng.permutation(len(slots))[:B]
+            else:
+                pick = self.rng.randint(0, len(slots), size=B)
+            step_slots[s] = [slots[int(i)] for i in pick]
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.gen,
+                                 device=self.device))
+        self._map_changed()
+        self.state, log, bin_stats = self._mv_phase(
+            self.state, self.kf.colors, self.kf.depths, self.kf.quats,
+            self.kf.trans, step_slots, seed)
+        self._check_tile_cap(bin_stats)
         return log
 
     def _check_tile_cap(self, bin_stats):
@@ -704,6 +841,7 @@ class SLAM:
                   f"max_per_tile={K}; escalating to {new_k}")
             self.rcfg = self.rcfg._replace(max_per_tile=new_k)
             self.events["max_per_tile"].append((self._frame, K, new_k))
+            self._build_mv_phase()
         elif not getattr(self, "_warned_tile_cap", False):
             self._warned_tile_cap = True
             print(f"[raster] WARNING: {frac:.1%} of true-footprint "
@@ -733,7 +871,8 @@ class SLAM:
     def _run(self, end_at: int | None = None) -> dict:
         cfg = self.config
         start_frame = self.try_resume()
-        metrics = MetricsCSV(self.output_dir, start_frame)
+        metrics = (MetricsCSV(self.output_dir, start_frame) if self.is_main
+                   else _NoMetrics())
         end_frame = self.num_frames - 1
         if end_at is not None:
             end_frame = min(int(end_at), end_frame)
@@ -853,7 +992,8 @@ class SLAM:
 
             # global progress report; a failure triggers an emergency
             # checkpoint
-            if ((time_idx + 1) % cfg["report_global_progress_every"] == 0
+            if self.is_main and (
+                    (time_idx + 1) % cfg["report_global_progress_every"] == 0
                     or time_idx == end_frame):
                 try:
                     self.report_progress(time_idx, im, d)
@@ -870,6 +1010,13 @@ class SLAM:
                     and time_idx % cfg["checkpoint_interval"] == 0):
                 self.save_checkpoint(time_idx)
 
+        if self._world_mesh is not None:
+            d = self.replica_max_diff()
+            self.stats["replica_max_abs_diff"] = d
+            if self.is_main:
+                print(f"[parallel] replicas: max |x - rank 0's x| over the "
+                      f"map, the Adam moments, the poses and the keyframe "
+                      f"poses of {self._world_mesh.world} ranks = {d!r}")
         if self.online_eval is not None:
             try:
                 self.online_eval.finalize()
@@ -919,6 +1066,8 @@ class SLAM:
         }, host(st.timestep)
 
     def save_checkpoint(self, time_idx: int):
+        if not self.is_main:
+            return
         params, timestep = self.gauss_params_numpy()
         dc = self.config["data"]
         ckpt_io.save_checkpoint(
@@ -929,6 +1078,14 @@ class SLAM:
             self.keyframe_time_indices)
 
     def write_runtime_stats(self, final_frame: int):
+        # each rank's kernel launch counts so far (the CUDA wrappers'
+        # counters; empty on the CPU), gathered for rank 0 to write
+        launches = (pdist.gather_object(dict(_cuda.LAUNCHES),
+                                        self._world_mesh)
+                    if self._world_mesh is not None
+                    else [dict(_cuda.LAUNCHES)])
+        if not self.is_main:
+            return
         s = self.stats
 
         def mean(xs):
@@ -957,6 +1114,15 @@ class SLAM:
         if self._track_bins is not None:
             d["Tracking Binning Rebins"] = self._track_bins.n_rebins
             d["Tracking Binning Reuses"] = self._track_bins.n_reuses
+        if self._world_mesh is not None:
+            m = self._world_mesh
+            d["World Size"] = m.world
+            d["Backend"] = m.backend
+            d["Map Views"] = self._map_views
+            d["Track Tiles"] = self._track_tiles
+            d["Replica Max Abs Diff"] = s.get("replica_max_abs_diff")
+        if any(launches):
+            d["Kernel Launches (per rank)"] = launches
         with open(os.path.join(self.output_dir, "runtime_stats.json"),
                   "w") as f:
             json.dump(d, f, indent=2)

@@ -216,14 +216,16 @@ def _cand_metric(loss, out, tcfg: TrackingConfig):
     return loss
 
 
-def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig
-                   ) -> PoseLoopState:
+def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig,
+                   value_and_grad_fn=None) -> PoseLoopState:
     """Adam on (quat, trans) with best-candidate selection under the
     (optionally mask-normalized) metric, per-iteration lr decay, the
     depth_loss_thres doubling rule, Polyak averaging and early stop.
-    `loss_fn(pose) -> (loss, LossOutputs)`. The candidate stored is the
-    pose *after* the step whose pre-step loss improved
-    (splatam.py:1281-1290)."""
+    `loss_fn(pose) -> (loss, LossOutputs)`; or `value_and_grad_fn(pose)
+    -> ((loss, LossOutputs), pose gradients)` in its place, for a caller
+    that reduces the pieces across ranks itself (parallel/track_sharded).
+    The candidate stored is the pose *after* the step whose pre-step loss
+    improved (splatam.py:1281-1290)."""
     max_iters = tcfg.num_iters * (2 if tcfg.use_depth_loss_thres else 1)
     pose = tuple(p.detach().clone() for p in pose0)
     best = pose
@@ -238,9 +240,12 @@ def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig
     it, cur_max, doubled = 0, tcfg.num_iters, False
     while True:
         leaves = tuple(p.requires_grad_(True) for p in pose)
-        with torch.enable_grad():
-            loss, out = loss_fn(leaves)
-            grads = torch.autograd.grad(loss, leaves)
+        if value_and_grad_fn is not None:
+            (loss, out), grads = value_and_grad_fn(leaves)
+        else:
+            with torch.enable_grad():
+                loss, out = loss_fn(leaves)
+                grads = torch.autograd.grad(loss, leaves)
         decay = tcfg.lr_decay ** it
         lrs = (tcfg.lr_quat * decay, tcfg.lr_trans * decay)
         with torch.no_grad():
@@ -438,13 +443,15 @@ def downsample_frame(gt_im, gt_depth, k: int):
 def track_frame_pyramid(params: GaussianParams, alive, init_quat, init_trans,
                         gt_im, gt_depth, cam: Camera, rcfg: RasterConfig,
                         lcfg: LossConfig, tcfg: TrackingConfig,
-                        binning=None) -> TrackResult:
+                        binning=None, track_fn=None) -> TrackResult:
     """Coarse-to-fine tracking: pyramid_levels - 1 coarse passes (each bins
     the map at its own camera) feed the full-resolution track_frame, which
     takes `binning`. The pose carries across levels; the best-candidate
     bookkeeping restarts per level (loss scales differ across levels).
     Returns the full-resolution result with iters_run accumulated and the
-    levels' logs concatenated."""
+    levels' logs concatenated. `track_fn` (track_frame's signature) runs
+    each level in track_frame's place (the tile-sharded tracker)."""
+    track_fn = track_fn or track_frame
     q, t = init_quat, init_trans
     coarse_logs = []
     coarse_iters = tcfg.pyramid_iters or tcfg.num_iters
@@ -461,12 +468,12 @@ def track_frame_pyramid(params: GaussianParams, alive, init_quat, init_trans,
                                fan_rounds=0, polyak_rho=0.0,
                                lr_quat=tcfg.lr_quat * lr_k,
                                lr_trans=tcfg.lr_trans * lr_k)
-        res = track_frame(params, alive, q, t, im_k, d_k, cam_k, rcfg, lcfg,
-                          tcfg_k)
+        res = track_fn(params, alive, q, t, im_k, d_k, cam_k, rcfg, lcfg,
+                       tcfg_k)
         q, t = res.quat, res.trans
         coarse_logs.append(res.loss_log[: res.iters_run])
-    res = track_frame(params, alive, q, t, gt_im, gt_depth, cam, rcfg, lcfg,
-                      tcfg._replace(pyramid_levels=1), binning=binning)
+    res = track_fn(params, alive, q, t, gt_im, gt_depth, cam, rcfg, lcfg,
+                   tcfg._replace(pyramid_levels=1), binning=binning)
     # one contiguous log so iters_run always indexes valid rows
     extra = sum(r.shape[0] for r in coarse_logs)
     return res._replace(iters_run=res.iters_run + extra,

@@ -97,7 +97,8 @@ def test_full_width_fast_configs_load():
     """The full-width fast configurations load through the CLI's loader and
     set the levers of the reference's presets on this package's full_res
     config."""
-    from isogs_slam_tpu_torch.slam.pipeline import (_check_ported,
+    from isogs_slam_tpu_torch.slam.pipeline import (_loss_cfg_mapping,
+                                                    _loss_cfg_tracking,
                                                     _mapping_cfg,
                                                     _tracking_cfg)
     from isogs_slam_tpu_torch.slam.config import inject_defaults
@@ -108,7 +109,10 @@ def test_full_width_fast_configs_load():
         assert _tracking_cfg(cfg).tile_subsample == 4
         m = _mapping_cfg(cfg)
         assert (m.tile_subsample, m.exact_polish_iters) == (4, polish)
-        _check_ported(cfg)          # nothing of it raises
+        # nothing of it raises (the loss readers; the refusal of unported
+        # knobs these lines called went with the last unported knob)
+        _loss_cfg_tracking(cfg)
+        _loss_cfg_mapping(cfg)
 
 
 def test_fullres_postopt_config_renders_the_slam_run_frames():

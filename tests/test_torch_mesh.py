@@ -185,8 +185,16 @@ def test_density_far_from_origin_defect_reproduced():
 
 
 def test_density_shard_devices_not_ported():
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        D.compute_density(_cloud(4, 0), device="cpu", shard_devices=2)
+    """shard_devices > 1 was refused here until the port had parallel/;
+    without a process group it now clamps to the world size (1) and runs
+    the serial pass, as the reference clamps to its devices
+    (tests/test_torch_parallel.py runs it on two ranks)."""
+    info = {}
+    d2, _ = D.compute_density(_cloud(4, 0), device="cpu", shard_devices=2,
+                              info=info)
+    d0, _ = D.compute_density(_cloud(4, 0), device="cpu")
+    assert info["shard_devices"] == 1
+    np.testing.assert_array_equal(d2, d0)
 
 
 # ----------------------------------------------------------------- marching
@@ -434,15 +442,18 @@ def test_extract_and_eval_clis_match_reference(tmp_path, capsys):
     cpu on
     one mesh gives the reference's geometry metrics (equal) and render-
     eval depth (1e-5 relative); without --device the card is required;
-    --shard-devices 2 names parallel/."""
+    --shard-devices 2 without a process group clamps to one rank and
+    writes the same mesh (it named parallel/ until the port had it)."""
     cfg_t = _room_run(tmp_path, "port")
     cfg_j = _room_run(tmp_path, "jax")
     args = ["--voxel-size", "0.1", "--iso-level", "1.0"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EXT.main([cfg_t] + args)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        EXT.main([cfg_t, "--device", "cpu", "--shard-devices", "2"] + args)
+    ply_s = EXT.main([cfg_t, "--device", "cpu", "--shard-devices", "2",
+                      "--output", "sharded.ply"] + args)
     ply_t = EXT.main([cfg_t, "--device", "cpu"] + args)
+    np.testing.assert_array_equal(IO.read_ply(ply_s)["faces"],
+                                  IO.read_ply(ply_t)["faces"])
     ply_j = JEXT.main([cfg_j] + args)
     run_t, run_j = tmp_path / "port", tmp_path / "jax"
     assert os.path.basename(ply_t) == os.path.basename(ply_j) \

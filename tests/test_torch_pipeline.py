@@ -221,19 +221,27 @@ def test_ensure_capacity_compacts_then_grows(tmp_path):
 
 
 # the mapper's densification, the kept iso pool and the fresh iso KNN run
-# (tests/test_torch_knobs.py); multi-device mapping and tracking do not
+# (tests/test_torch_knobs.py); the multi-device knobs run too, clamped to
+# the world size (tests/test_torch_parallel.py runs them on two ranks)
 NOT_PORTED = {"parallel.map_views": 2, "parallel.track_tiles": 2}
 
 @pytest.mark.parametrize("knob", list(NOT_PORTED))
-def test_unported_knob_raises_at_construction(tmp_path, knob):
-    """A config that sets a knob this package does not run yet fails at
-    SLAM.__init__ with NotImplementedError naming it."""
+def test_unported_knob_raises_at_construction(tmp_path, knob, capsys):
+    """The multi-device knobs were refused here until the port had
+    parallel/; now a config that sets one constructs without a process
+    group as the reference does on one device: the knob clamps to the
+    world size with the reference's line, and the sharded program is
+    built (the B = 1 view phase, the one-rank tile mesh)."""
     cfg = inject_defaults(_config(tmp_path, "k"))
     section, key = knob.split(".")
     cfg[section][key] = NOT_PORTED[knob]
-    with pytest.raises(NotImplementedError) as e:
-        P.SLAM(cfg, dataset=_frames())
-    assert key in str(e.value)
+    slam = P.SLAM(cfg, dataset=_frames())
+    assert (f"[parallel] {key} 2 > 1 devices; clamping"
+            in capsys.readouterr().out)
+    if key == "map_views":
+        assert slam._map_views == 1 and slam._mv_phase is not None
+    else:
+        assert slam._track_tiles == 1 and slam._tt_mesh.size == 1
 
 
 def test_device_must_be_cuda_or_cpu(tmp_path):
