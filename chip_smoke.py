@@ -48,7 +48,7 @@ before the result line):
      directory, launch counters set to 0 before and read after each: the
      exact configuration (configs/synthetic/full_res.py, `--end-at 15`)
      and the fast one (configs/synthetic/full_res_fastlegal.py,
-     `--end-at 30`); prints timings, tile-list reuse, cap escalations,
+     `--end-at 15`); prints timings, tile-list reuse, cap escalations,
      capacity growths, peak memory, the quality metrics and the launch
      counters, and fails on a kernel that was not launched, a non-finite
      loss or parameter, a tracking mask under 0.1, ATE >= 2 cm or
@@ -120,6 +120,15 @@ before the result line):
      filter matmuls against true f32, and the flags restored;
   5q. tools.multichip_scaling at B in {1, 2}: the overhead columns (not a
      speedup: the ranks share the card);
+  5r. python -m isogs_slam_tpu_torch.bench in a subprocess at its
+     defaults (1200x680, 10 measured frames, 3 passes, exact then the fast
+     block), its JSON line and the card's name and power limit on lines
+     prefixed [bench]; fails on a non-zero exit, a value or fast_mode_fps
+     that is not finite and above 0, no Gaussians or a pass count other
+     than 3; the bench's launch counts (exact part, fast part) are two
+     paths of the kernels line, and the fast block's stripe must go
+     through kernel C; then graft_entry.entry() on the card (finite loss)
+     and graft_entry --dryrun 2 on two ranks sharing the card over gloo;
   (and in 5f, on two ranks under torch.distributed.run with this file as
   their program: compute_density(shard_devices=2), its grid against the
   serial one, exact or within 1e-6 of the grid's max, and which of the two
@@ -138,6 +147,7 @@ from __future__ import annotations
 import csv
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -146,7 +156,9 @@ import time
 
 H, W = 680, 1200
 TRACK_ITERS, MAP_ITERS, N_FRAMES = 10, 10, 2     # the hand-driven path
-END_AT_EXACT, END_AT_FAST = 15, 30             # the pipeline paths
+# the pipeline paths' last frames (16 frames each keeps the whole script
+# near half its time limit)
+END_AT_EXACT, END_AT_FAST = 15, 15
 N_REPLICA = 16                  # 5g: frames of the Replica-layout bridge
 # the shipped configs track at sil_thres 0.99, where the synthetic scene's
 # single-sheet walls leave a small mask by design (the iso target holds the
@@ -1325,6 +1337,96 @@ def tools_path(root, tmp, dev, slam_replica):
     phase("multichip_scaling (5q)", t0)
 
 
+BENCH_TIMEOUT = 600    # 5r: seconds for the bench subprocess
+
+
+def bench_path(root, tmp, smi):
+    """Phase 5r: `python -m isogs_slam_tpu_torch.bench` at its defaults
+    (1200x680, 10 frames, 3 passes, exact then fast) in a subprocess, its
+    JSON line and the card beside it; fails on a non-zero exit, a value or
+    fast-mode FPS that is not finite and above 0, an empty map or a pass
+    count other than 3. Then graft_entry.entry() on the card (a finite
+    loss) and graft_entry's dry run on two ranks sharing the card over
+    gloo. Returns the bench's launch counts: (exact part, fast part)."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch import graft_entry
+    t0 = time.perf_counter()
+    counts = os.path.join(tmp, "bench_launches.json")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "isogs_slam_tpu_torch.bench",
+             "--launches-out", counts], cwd=root, env=env,
+            capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"5r: the bench outlived {BENCH_TIMEOUT} s\n"
+                             f"{(e.stderr or '')[-3000:]}") from e
+    for ln in out.stderr.splitlines():
+        if ln.startswith("[bench]"):
+            print(f"5r: {ln}")
+    if out.returncode != 0:
+        raise AssertionError(f"5r: the bench exited {out.returncode}\n"
+                             f"{out.stderr[-3000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"5r: the bench printed {len(lines)} JSON "
+                             f"lines\n{out.stdout[-3000:]}")
+    print(f"[bench] {lines[0]}")
+    print(f"[bench] {smi}")
+    r = json.loads(lines[0])
+    d = r["detail"]
+    fps, ffps = r["value"], d.get("fast_mode_fps", float("nan"))
+    print(f"5r: exact {fps} FPS ({d['track_s_per_frame']} s tracking, "
+          f"{d['map_s_per_frame']} s mapping a frame), fast {ffps} FPS, "
+          f"{d['n_gaussians']} Gaussians, isect_util {d['isect_util']}, "
+          f"probes {d['latency_probe_ms']} / "
+          f"{d.get('fast_mode_probe_post_ms')} ms")
+    if not (np.isfinite(fps) and fps > 0 and np.isfinite(ffps) and ffps > 0
+            and d["n_gaussians"] > 0 and len(d["passes"]) == 3
+            and len(d.get("fast_mode_passes", ())) == 3):
+        raise AssertionError("5r: the bench's line fails its checks")
+    with open(counts) as f:
+        launches = json.load(f)
+
+    fn, args = graft_entry.entry()
+    loss = float(fn(*args))
+    torch.cuda.synchronize()
+    print(f"5r: graft_entry.entry() loss on the card {loss:.6f}")
+    if not np.isfinite(loss):
+        raise AssertionError("5r: graft_entry.entry() gave a non-finite loss")
+    del fn, args
+    _, text = _torchrun(root, 2, ["-m", "isogs_slam_tpu_torch.graft_entry",
+                                  "--dryrun", "2"], {},
+                        os.path.join(tmp, "dryrun.log"), 300)
+    # the ranks share the log: one rank's line may run into the other's
+    ok = re.findall(r"dryrun_multichip\(2\) rank \d: [^\n]*? OK", text)
+    for ln in ok:
+        print(f"5r: {ln}")
+    if sorted(ln.split(":")[0][-1] for ln in ok) != ["0", "1"]:
+        raise AssertionError(f"5r: the dry run reported {len(ok)} ranks OK"
+                             f"\n{text[-3000:]}")
+    phase("bench (5r)", t0)
+    return launches["exact"], launches["fast"]
+
+
+def check_stripe_through_c(launches, path_name):
+    """The mapping stripe's backward (T=975) goes through kernel C (f32
+    sums in a fixed order), as in the reference: C must be launched at
+    least once for every stripe and every exact mapping backward."""
+    n_c = launches.get("segreduce", 0)
+    n_stripe = sum(v for k, v in launches.items()
+                   if k.startswith("composite_bwd[T=975,"))
+    n_exact = sum(v for k, v in launches.items()
+                  if k.startswith("composite_bwd[T=3225,")
+                  and int(k.split("K=")[1].rstrip("]")) >= 512)
+    print(f"{path_name}: kernel C launched {n_c} times for {n_stripe} "
+          f"stripe backwards (T=975) and {n_exact} exact mapping backwards")
+    if not (n_stripe > 0 and n_c >= n_stripe + n_exact):
+        raise AssertionError(f"the mapping stripe's backward did not go "
+                             f"through kernel C on the {path_name} path")
+
+
 def _tile_depth(state, w2c, cam, rcfg):
     """(most candidates any tile has, true candidates the K cap drops) of
     a map seen from w2c."""
@@ -2242,17 +2344,7 @@ def main() -> int:
     del slam_fast
     print(f"fast run twice, same seed: ATE {ates[0]:.6f} and {ates[1]:.6f}"
           f" cm, difference {ates[1] - ates[0]:.6f} cm")
-    n_c = launches_fast.get("segreduce", 0)
-    n_stripe = sum(v for k, v in launches_fast.items()
-                   if k.startswith("composite_bwd[T=975,"))
-    n_exact = sum(v for k, v in launches_fast.items()
-                  if k.startswith("composite_bwd[T=3225,")
-                  and int(k.split("K=")[1].rstrip("]")) >= 512)
-    print(f"fast run: kernel C launched {n_c} times for {n_stripe} stripe "
-          f"backwards (T=975) and {n_exact} exact mapping backwards")
-    if not (n_stripe > 0 and n_c >= n_stripe + n_exact):
-        raise AssertionError("the mapping stripe's backward did not go "
-                             "through kernel C")
+    check_stripe_through_c(launches_fast, "fast run")
     nt, nm = len(tr_exact), len(mp_exact)
     print(f"fast against exact, same call, over the frames both ran (1-"
           f"{nt}; mapping phases 1-{nm}): tracking "
@@ -2286,6 +2378,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         tools_path(root, tmp, dev, slam)
         del slam
+        # 5r: the headline bench and the graft entry points; the bench's
+        # counts start at 0 in its own process
+        torch.cuda.empty_cache()
+        launches_bench, launches_bench_fast = bench_path(root, tmp, smi)
+        check_stripe_through_c(launches_bench_fast, "bench fast block")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2297,7 +2394,9 @@ def main() -> int:
              ("Replica config", launches_replica),
              ("live demo", launches_live), ("viewers", launches_viewers),
              ("multi-device config, 2 ranks", launches_mc),
-             ("multi-device config, world size 1", launches_mc1))
+             ("multi-device config, world size 1", launches_mc1),
+             ("bench, exact", launches_bench),
+             ("bench, fast block", launches_bench_fast))
     kernels = []
     forward_only = ("novel view",)
     for path_name, launches in paths:

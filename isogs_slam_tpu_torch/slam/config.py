@@ -47,7 +47,9 @@ def inject_defaults(config: dict) -> dict:
     config["raster"].setdefault("isect_per_gaussian", 4.0)
     config["raster"].setdefault("tile_chunk", 256)
     config.setdefault("capacity_granule", 65536)
-    # multi-device mapping / tracking (not ported: > 1 raises in SLAM)
+    # multi-device mapping / tracking: map_views > 1 runs the view-parallel
+    # mapping phase on that many ranks under torch.distributed.run
+    # (parallel/), clamped to the world size (one rank without it)
     config.setdefault("parallel", {})
     config["parallel"].setdefault("map_views", 0)
     # mapping loss weight defaults for the IsoGS terms (splatam.py:733-739)

@@ -48,8 +48,10 @@ class TrackingConfig(NamedTuple):
     # cross-frame reuse of the tracking tile lists (read by the pipeline,
     # which owns the BinningReuse): one binning widened to
     # cross_frame_margin_px serves the frames between map edits, until the
-    # predicted pose drifts more than cross_frame_margin_px - bin_margin_px
-    reuse_binning: bool = True
+    # predicted pose drifts more than cross_frame_margin_px - bin_margin_px;
+    # off by default as in the reference (the pipeline's config turns it
+    # on)
+    reuse_binning: bool = False
     cross_frame_margin_px: float = 16.0
     # coarse-to-fine tracking (track_frame_pyramid): pyramid_levels - 1
     # passes on 2^k-downsampled frames before the full-resolution pass,
