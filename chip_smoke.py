@@ -21,12 +21,17 @@ before the result line):
      cameras only 5g-5i render at (EXTRA_CAMERAS): the live demo's 480x360
      (T = 690, a half-empty last tile row) at K = 256 (f32 backward), 512,
      768 and 1024, the viewers' 600x340 and 240x180 at K = 512 (T = 836,
-     180) and test_installation's 64x48 at K = 128 (T = 12); the
-     tile-to-image crop at three cameras; segment reduce at N = capacity on
-     all tiles' rows and on a stripe's rows only; also the plain PyTorch
-     form of the backward kernel's algebra against autograd through the
-     plain forward; time kernel, plain version and (segment reduce)
-     torch.segment_reduce;
+     180) and test_installation's 64x48 at K = 128 (T = 12), the dataset
+     families' 640x480, 876x584 and 960x720 (T = 1200, 2035 with partial
+     tiles on both edges, 2700) at the four K and splatam_s's 600x340
+     densification at K = 768 and 1024; splatam_fast8's mapping stripe
+     (tile_subsample 8: T = 600 on a virtual row) at K = 512, 768, 1024; the
+     tile-to-image crop at four cameras; segment reduce at N = capacity on
+     all tiles' rows, on a stripe's rows only (tile_subsample 4 and 8) and
+     on all tiles' rows at 640x480, 876x584 and 960x720; also the plain
+     PyTorch form of the backward kernel's algebra against autograd
+     through the plain forward; time kernel, plain version and (segment
+     reduce) torch.segment_reduce;
   3b. "subset route": render_tiles_subset's two backward routes (index_add_
      of the rows against expansion scatter + segment reduce) at the
      stripe's shape and at a quarter of it: same gradients, both times,
@@ -99,7 +104,8 @@ before the result line):
      card's render of the CPU's colours), scripts.test_installation and
      scripts.model_browser --text over 5g's and 5h's runs;
   5k. the shipped configs/replica/splatam_mc.py as it is, on 5g's frames
-     (1200x680, 10 frames, eval), on two ranks sharing the card over gloo
+     (1200x680, 6 frames: both mapping phases, eval), on two ranks sharing
+     the card over gloo
      (python -m torch.distributed.run --nproc-per-node 2,
      SPLATAM_MAP_VIEWS=2 SPLATAM_TRACK_TILES=2): the view-parallel mapping
      phase and the tile-sharded tracker; fails at ATE >= 2 cm, PSNR <=
@@ -114,7 +120,7 @@ before the result line):
   5n. tools.grad_check --device cuda at its defaults (n = 512): the
      analytic gradients through kernels A, B and C against float64
      central differences of the plain versions; exit 0;
-  5o. tools.profile_map at 1200x680, one mapping phase of 40 iterations:
+  5o. tools.profile_map at 1200x680, one mapping phase of 20 iterations:
      the top 15 ops by CUDA time;
   5p. tools.msssim_bias_check on 5g's checkpoint: MS-SSIM with TF32
      filter matmuls against true f32, and the flags restored;
@@ -129,6 +135,25 @@ before the result line):
      paths of the kernels line, and the fast block's stripe must go
      through kernel C; then graft_entry.entry() on the card (finite loss)
      and graft_entry --dryrun 2 on two ranks sharing the card over gloo;
+  5s-5y. every shipped dataset family (FAMILIES, in order: 5s TUM, 5t
+     ScanNet, 5u ScanNet++, 5v iPhone, 5w ReplicaV2, 5x splatam_s, 5y
+     splatam_fast8): the synthetic room
+     written in the family's on-disk layout (write_family: TUM's lists and
+     distorted colour, ScanNet's pose files, ScanNet++'s DSLR tree with an
+     is_bad entry and a held-out split, NeRFCapture's transforms.json,
+     ReplicaV2's imap/00 and imap/01, Replica's results/) at the config's
+     own size with its camera YAML's intrinsics, then the config as shipped
+     through the CLI (its width, iteration counts, cadence and window:
+     configs/{tum, scannet, scannetpp, iphone, replica_v2}/splatam.py,
+     configs/replica/{splatam_s, splatam_fast8}.py) on 6-8 frames with
+     eval and phase 5's gates (the mask's at 1%, these configs track at
+     sil_thres 0.99); s/frame, s/phase and peak memory on a [family] line
+     each; splatam_fast8's stripe (T = 600) must go through kernel C;
+  5z. configs/scannetpp/post_splatam_opt.py on 5u's run (its checkpoint
+     directory set, iterations cut to POSTOPT_ITERS), then
+     configs/scannetpp/eval_novel_view.py on the result and
+     configs/replica_v2/eval_novel_view.py on 5w's run (held-out splits):
+     finite values;
   (and in 5f, on two ranks under torch.distributed.run with this file as
   their program: compute_density(shard_devices=2), its grid against the
   serial one, exact or within 1e-6 of the grid's max, and which of the two
@@ -169,6 +194,10 @@ N_REPLICA = 16                  # 5g: frames of the Replica-layout bridge
 REPLICA_MIN_MASK = 0.01
 LIVE_H, LIVE_W, LIVE_HZ, N_LIVE = 360, 480, 10.0, 30   # 5h: the live demo
 SUB = 4                     # the fast configuration's tile_subsample
+SUB8 = 8                    # splatam_fast8's mapping.tile_subsample
+# phase 3's inputs whose backward rows kernel C is also held on
+SEGREDUCE_TAGS = ("map", "stripe", "stripe8_512", "vga512", "scannetpp512",
+                  "iphone512")
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 SOURCES = {"composite_fwd": "isogs_slam_tpu_torch/csrc/composite.cu",
@@ -280,8 +309,10 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
     pose gathered by bins of K = 512, 768 and 1024; "track_sub",
     "pyramid_sub": every SUB-th tile of the two tracking cameras, and
     "stripe", "stripe768", "stripe1024": a mapping stripe of the three
-    mapping binnings, each cut by the port's own subset functions onto a
-    virtual single-row grid (tiles_x = T). Also returns what the later
+    mapping binnings, and "stripe8_512", "stripe8_768", "stripe8_1024":
+    splatam_fast8's (tile_subsample SUB8, T = 600), each cut by the port's
+    own subset functions onto a virtual single-row grid (tiles_x = T).
+    Also returns what the later
     phases reuse: {"state": the map, "table": the fused table, "proj":
     its projection, "bins": {K: binning}}."""
     import torch
@@ -360,6 +391,12 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
         sel, _ = select_stripe(1, cam.tiles_y, cam.tiles_x, rows_core,
                                rows_w, dev)
         shift = _virtual_row_shift(sel, cam, 10, table.dtype)
+        # splatam_fast8's stripe (mapping.tile_subsample = 8)
+        rows_core8, rows_w8, _, _ = stripe_shape(cam.tiles_y, cam.tiles_x,
+                                                 SUB8)
+        sel8, _ = select_stripe(1, cam.tiles_y, cam.tiles_x, rows_core8,
+                                rows_w8, dev)
+        shift8 = _virtual_row_shift(sel8, cam, 10, table.dtype)
         bins = {}
         for tag, k in (("", rcfg.max_per_tile), ("768", 768),
                        ("1024", 1024)):
@@ -375,22 +412,36 @@ def composite_inputs(frames, cam, capacity, rcfg, rcfg_track, dev):
                 cnt=b.tile_count[sel].contiguous(), tiles_x=sel.shape[0],
                 bdt=torch.bfloat16, bins=None,
                 desc=f"stripe of {rows_w} tile rows on a virtual row")
+            out["stripe8_" + str(k)] = dict(
+                g=(table[b.tile_gauss[sel8]] + shift8).contiguous(),
+                cnt=b.tile_count[sel8].contiguous(), tiles_x=sel8.shape[0],
+                bdt=torch.bfloat16, bins=None,
+                desc=f"tile_subsample {SUB8} stripe of {rows_w8} tile rows "
+                     f"on a virtual row")
     return out, dict(state=state0, table=table, proj=proj, bins=bins,
-                     stripe_sel=sel, pose0=(q0, t0_))
+                     stripe_sel=sel, stripe8_sel=sel8, pose0=(q0, t0_))
 
 
-# the cameras that only phases 5g-5i render at, as (tag, width, height,
+# tracking (f32 backward), mapping and the pipeline's escalations
+ALL_K = ((256, "f32"), (512, "bf16"), (768, "bf16"), (1024, "bf16"))
+# the cameras that only phases 5g-5z render at, as (tag, width, height,
 # ((K, backward dtype), ...)): the live demo at 480x360 (30 x 23 tiles, the
 # last row half empty; tracking K = 256, mapping 512 and the escalations),
-# the viewers at the default --downscale 2 of 1200x680 and of 480x360, and
-# test_installation's 64x48 scene at K = 128; intrinsics of the synthetic
-# dataset at that size
+# the viewers at the default --downscale 2 of 1200x680 and of 480x360,
+# test_installation's 64x48 scene at K = 128; the dataset families' own
+# sizes (5s-5z): TUM's and ScanNet's 640x480 (T = 1200), ScanNet++'s
+# 876x584 (T = 2035, partial tiles on both edges), the iPhone's 960x720
+# (T = 2700), and splatam_s's 600x340 densification render at the
+# escalated caps; intrinsics of the synthetic dataset at that size
 EXTRA_CAMERAS = (
-    ("live", 480, 360, ((256, "f32"), (512, "bf16"), (768, "bf16"),
-                        (1024, "bf16"))),
+    ("live", 480, 360, ALL_K),
     ("viewer", 600, 340, ((512, "bf16"),)),
     ("online", 240, 180, ((512, "bf16"),)),
     ("install", 64, 48, ((128, "bf16"),)),
+    ("vga", 640, 480, ALL_K),
+    ("scannetpp", 876, 584, ALL_K),
+    ("iphone", 960, 720, ALL_K),
+    ("densify", 600, 340, ((768, "bf16"), (1024, "bf16"))),
 )
 
 
@@ -1123,7 +1174,10 @@ def live_path(root, tmp, dev):
     return launches
 
 
-N_MC = 10        # 5k: frames of the multi-device Replica config
+# 5k: frames of the multi-device Replica config (its mapping phases at
+# frames 0 and 5; cut from 10 when 5s-5z joined, to keep the script near
+# half its time limit)
+N_MC = 6
 N_MC_W1 = 6      # 5m: frames of its world-size-1 run
 
 
@@ -1301,7 +1355,9 @@ def tools_path(root, tmp, dev, slam_replica):
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    profile_map.main(["--phases", "1", "--top", "15"])
+    # 20 of the config's 40 iterations (the phase's fixed cost, binning and
+    # the iso pool, is in either)
+    profile_map.main(["--phases", "1", "--iters", "20", "--top", "15"])
     torch.cuda.empty_cache()
     phase("profile_map (5o)", t0)
 
@@ -1410,18 +1466,20 @@ def bench_path(root, tmp, smi):
     return launches["exact"], launches["fast"]
 
 
-def check_stripe_through_c(launches, path_name):
-    """The mapping stripe's backward (T=975) goes through kernel C (f32
-    sums in a fixed order), as in the reference: C must be launched at
-    least once for every stripe and every exact mapping backward."""
+def check_stripe_through_c(launches, path_name, stripe_t=975):
+    """The mapping stripe's backward (T = stripe_t: 975 at tile_subsample
+    4, 600 at 8) goes through kernel C (f32 sums in a fixed order), as in
+    the reference: C must be launched at least once for every stripe and
+    every exact mapping backward."""
     n_c = launches.get("segreduce", 0)
     n_stripe = sum(v for k, v in launches.items()
-                   if k.startswith("composite_bwd[T=975,"))
+                   if k.startswith(f"composite_bwd[T={stripe_t},"))
     n_exact = sum(v for k, v in launches.items()
                   if k.startswith("composite_bwd[T=3225,")
                   and int(k.split("K=")[1].rstrip("]")) >= 512)
     print(f"{path_name}: kernel C launched {n_c} times for {n_stripe} "
-          f"stripe backwards (T=975) and {n_exact} exact mapping backwards")
+          f"stripe backwards (T={stripe_t}) and {n_exact} exact mapping "
+          f"backwards")
     if not (n_stripe > 0 and n_c >= n_stripe + n_exact):
         raise AssertionError(f"the mapping stripe's backward did not go "
                              f"through kernel C on the {path_name} path")
@@ -1905,6 +1963,386 @@ def mesh_path(root, ckpt_path, tmp):
     phase("mesh (5f)", t0)
 
 
+# 5s-5y: the shipped dataset families. Each phase writes the synthetic room
+# in one family's on-disk layout at its config's own size and runs the
+# shipped config through the CLI at its own width, iteration counts and
+# cadence: (tag, config, layout, the config's camera YAML (None: the
+# layout carries its intrinsics in JSON), frames of the SLAM sequence).
+FAMILIES = (
+    ("tum", "configs/tum/splatam.py", "tum",
+     "configs/data/tum_freiburg1.yaml", 6),
+    ("scannet", "configs/scannet/splatam.py", "scannet",
+     "configs/data/scannet.yaml", 6),
+    ("scannetpp", "configs/scannetpp/splatam.py", "scannetpp", None, 6),
+    ("iphone", "configs/iphone/splatam.py", "nerfcapture", None, 6),
+    ("replica_v2", "configs/replica_v2/splatam.py", "replica_v2",
+     "configs/data/replica_v2.yaml", 8),
+    ("splatam_s", "configs/replica/splatam_s.py", "replica",
+     "configs/data/replica.yaml", 8),
+    ("splatam_fast8", "configs/replica/splatam_fast8.py", "replica",
+     "configs/data/replica.yaml", 8),
+)
+# the layouts with a held-out novel-view split (their NVS configs read it)
+NVS_LAYOUTS = ("scannetpp", "replica_v2")
+# the families whose eval_novel_view.py config 5z runs (configs/<tag>/)
+NVS_FAMILIES = ("scannetpp", "replica_v2")
+# ScanNet++: the train entry flagged is_bad (its config sets ignore_bad)
+BAD_ENTRY = 2
+# ScanNet++ post-opt on the family run's map (5z): iterations cut from the
+# config's 30,000, and where the cut puts GS densification
+POSTOPT_ITERS = 300
+
+
+def _camera_yaml(path):
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)["camera_params"]
+
+
+def _distort(color, K, dist):
+    """The colour a camera with these distortion coefficients records of a
+    pinhole render (cv2.undistort of it gives the render back up to
+    interpolation): each pixel samples the render where its undistorted
+    coordinate falls."""
+    import cv2
+    import numpy as np
+    h, w = color.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    pts = np.stack([xs, ys], -1).reshape(-1, 1, 2)
+    und = cv2.undistortPoints(pts, K, dist, P=K).reshape(h, w, 2)
+    return cv2.remap(color, und[..., 0].astype(np.float32),
+                     und[..., 1].astype(np.float32), cv2.INTER_LINEAR,
+                     borderMode=cv2.BORDER_REPLICATE)
+
+
+def _room_views(n, height, width, fx, fy, cx, cy, device, traj_step,
+                n_per_wall=None):
+    """n views of the synthetic room along its orbit, rendered on `device`
+    at this camera: [(colour uint8 [H,W,3], depth m [H,W], c2w f64)]."""
+    import numpy as np
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.datasets.synthetic import SyntheticDataset
+    ds = SyntheticDataset(num_frames=n, height=height, width=width,
+                          n_per_wall=n_per_wall or max(400,
+                                                       height * width // 40),
+                          traj_step=traj_step, device=device)
+    ds.cam = Camera(width=width, height=height, fx=fx, fy=fy, cx=cx, cy=cy)
+    out = []
+    for i in range(n):
+        color, depth, _, c2w = ds[i]
+        out.append((np.clip(color, 0, 255).astype(np.uint8), depth[:, :, 0],
+                    np.asarray(c2w, np.float64)))
+    return out
+
+
+def _depth16(depth, scale):
+    import numpy as np
+    return np.clip(depth * scale, 0, 65535).astype(np.uint16)
+
+
+def write_family(layout, data_root, sequence, n_frames, height, width,
+                 yaml_path=None, device="cuda", traj_step=0.004,
+                 n_per_wall=None):
+    """Write the synthetic room in one dataset family's on-disk layout under
+    data_root/sequence and return the CLI's `--set` arguments that point a
+    shipped config at it (data.basedir, and data.gradslam_data_cfg = the
+    config's own camera YAML, given as `yaml_path`).
+
+    layout: "tum" (rgb/ + depth/ PNGs, rgb.txt / depth.txt / groundtruth.txt
+    with TUM timestamps and quaternions), "scannet" (color/*.jpg,
+    depth/*.png, pose/*.txt), "scannetpp" (dslr/undistorted_{images,depths},
+    nerfstudio/transforms_undistorted.json, train_test_lists.json; train
+    entry BAD_ENTRY flagged is_bad), "nerfcapture" (rgb/, depth/,
+    transforms.json), "replica" (results/frame*.jpg / depth*.png, traj.txt),
+    "replica_v2" (imap/00 and imap/01: rgb_*.png, depth_*.png,
+    traj_w_c.txt). Colour and depth are rendered at height x width with
+    the YAML's intrinsics scaled to that size (the synthetic dataset's for
+    the JSON layouts); a YAML with distortion coefficients gets images at
+    its own size, distorted by them, since the loader undistorts at that
+    size. The SLAM sequence holds n_frames frames; the layouts with a
+    novel-view split (NVS_LAYOUTS) render twice as densely and keep every
+    other pose for the held-out split, so each held-out view lies between
+    two frames of the sequence. The room has n_per_wall Gaussians a wall
+    (the Replica bridge's count at the render size unless given)."""
+    import json
+    import numpy as np
+    from isogs_slam_tpu_torch.io.images import imwrite
+    p_flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    sets = ["--set", f"data.basedir={data_root}"]
+    dist = None
+    if yaml_path is not None:
+        cp = _camera_yaml(yaml_path)
+        if cp.get("distortion") is not None:
+            height, width = int(cp["image_height"]), int(cp["image_width"])
+            dist = np.asarray(cp["distortion"], np.float64)
+        sx, sy = width / cp["image_width"], height / cp["image_height"]
+        fx, fy = cp["fx"] * sx, cp["fy"] * sy
+        cx, cy = cp["cx"] * sx, cp["cy"] * sy
+        scale = float(cp["png_depth_scale"])
+        sets += ["--set", f"data.gradslam_data_cfg={yaml_path}"]
+    else:
+        fx = fy = 0.75 * width
+        cx, cy = width / 2 - 0.5, height / 2 - 0.5
+        scale = 1000.0 if layout == "scannetpp" else 6553.5
+    nvs = layout in NVS_LAYOUTS
+    n_train = n_frames + (layout == "scannetpp")
+    n_views = 2 * n_train - 1 if nvs else n_train
+    views = _room_views(n_views, height, width, fx, fy, cx, cy, device,
+                        traj_step / 2 if nvs else traj_step, n_per_wall)
+    train = views[::2] if nvs else views
+    test = views[1::2] if nvs else []
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
+    seq = os.path.join(data_root, sequence)
+
+    def mkdirs(*names):
+        for n in names:
+            os.makedirs(os.path.join(seq, n), exist_ok=True)
+
+    if layout == "tum":
+        from scipy.spatial.transform import Rotation
+        mkdirs("rgb", "depth")
+        head = ["# written by chip_smoke.py (synthetic room)",
+                "# file", "# timestamp"]
+        rgb, dep, gt = list(head), list(head), list(head)
+        for i, (c, d, c2w) in enumerate(train):
+            t = 1305031102.175304 + i / 30.0
+            name = f"{t:.6f}.png"
+            imwrite(os.path.join(seq, "rgb", name),
+                    c if dist is None else _distort(c, K, dist))
+            imwrite(os.path.join(seq, "depth", name), _depth16(d, scale))
+            rgb.append(f"{t:.6f} rgb/{name}")
+            dep.append(f"{t + 0.004:.6f} depth/{name}")
+            q = Rotation.from_matrix(c2w[:3, :3]).as_quat()
+            gt.append(f"{t + 0.002:.4f} " + " ".join(
+                f"{x:.7f}" for x in (*c2w[:3, 3], *q)))
+        for name, lines in (("rgb.txt", rgb), ("depth.txt", dep),
+                            ("groundtruth.txt", gt)):
+            with open(os.path.join(seq, name), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    elif layout == "scannet":
+        mkdirs("color", "depth", "pose")
+        for i, (c, d, c2w) in enumerate(train):
+            imwrite(os.path.join(seq, "color", f"{i}.jpg"), c, quality=95)
+            imwrite(os.path.join(seq, "depth", f"{i}.png"),
+                    _depth16(d, scale))
+            np.savetxt(os.path.join(seq, "pose", f"{i}.txt"), c2w)
+    elif layout in ("scannetpp", "nerfcapture"):
+        meta = {"h": height, "w": width, "fl_x": fx, "fl_y": fy, "cx": cx,
+                "cy": cy}
+        if layout == "nerfcapture":
+            mkdirs("rgb", "depth")
+            frames = []
+            for i, (c, d, c2w) in enumerate(train):
+                imwrite(os.path.join(seq, "rgb", f"{i}.png"), c)
+                imwrite(os.path.join(seq, "depth", f"{i}.png"),
+                        _depth16(d, scale))
+                frames.append({"file_path": f"rgb/{i}.png",
+                               "transform_matrix":
+                                   (p_flip @ c2w @ p_flip).tolist()})
+            with open(os.path.join(seq, "transforms.json"), "w") as f:
+                json.dump(dict(meta, frames=frames), f)
+        else:
+            mkdirs("dslr/undistorted_images", "dslr/undistorted_depths",
+                   "dslr/nerfstudio")
+            lists = {"train": [], "test": []}
+            meta.update(frames=[], test_frames=[])
+            entries = ([("train", i, v) for i, v in enumerate(train)]
+                       + [("test", i, v) for i, v in enumerate(test)])
+            for split, i, (c, d, c2w) in entries:
+                name = f"DSC{2 * i + (split == 'test'):05d}.JPG"
+                base = os.path.join(seq, "dslr")
+                imwrite(os.path.join(base, "undistorted_images", name), c,
+                        quality=95)
+                imwrite(os.path.join(base, "undistorted_depths",
+                                     name.replace(".JPG", ".png")),
+                        _depth16(d, scale))
+                entry = {"file_path": name,
+                         "transform_matrix": (p_flip @ c2w
+                                              @ p_flip).tolist()}
+                if split == "train":
+                    entry["is_bad"] = i == BAD_ENTRY
+                lists[split].append(name)
+                meta["frames" if split == "train" else
+                     "test_frames"].append(entry)
+            with open(os.path.join(seq, "dslr", "nerfstudio",
+                                   "transforms_undistorted.json"), "w") as f:
+                json.dump(meta, f)
+            with open(os.path.join(seq, "dslr", "train_test_lists.json"),
+                      "w") as f:
+                json.dump(lists, f)
+    elif layout == "replica":
+        mkdirs("results")
+        lines = []
+        for i, (c, d, c2w) in enumerate(train):
+            imwrite(os.path.join(seq, "results", f"frame{i:06d}.jpg"), c,
+                    quality=95)
+            imwrite(os.path.join(seq, "results", f"depth{i:06d}.png"),
+                    _depth16(d, scale))
+            lines.append(" ".join(f"{x:.9f}" for x in c2w.reshape(-1)))
+        with open(os.path.join(seq, "traj.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    elif layout == "replica_v2":
+        for split, vs in (("00", train), ("01", test)):
+            mkdirs(f"imap/{split}/rgb", f"imap/{split}/depth")
+            lines = []
+            for i, (c, d, c2w) in enumerate(vs):
+                base = os.path.join(seq, "imap", split)
+                imwrite(os.path.join(base, "rgb", f"rgb_{i}.png"), c)
+                imwrite(os.path.join(base, "depth", f"depth_{i}.png"),
+                        _depth16(d, scale))
+                lines.append(" ".join(f"{x:.9f}" for x in c2w.reshape(-1)))
+            with open(os.path.join(seq, "imap", split, "traj_w_c.txt"),
+                      "w") as f:
+                f.write("\n".join(lines) + "\n")
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    return sets
+
+
+def family_path(root, tmp, dev, tag, config_rel, layout, yaml_rel,
+                n_frames):
+    """Phases 5s-5y: one shipped dataset family. Writes the synthetic room
+    in the family's layout (write_family) at the config's own size, with
+    its camera YAML's intrinsics, and runs the config as shipped through
+    the CLI (its own width, iteration counts, cadence and window; only
+    the data paths, the workdir, --end-at and --device set), with eval and
+    the phase-5 gates (the mask's at 1%: every SLAM config of configs/
+    tracks at sil_thres 0.99, as 5g's). Prints s/frame (tracking and
+    mapping over the frames), s/phase and peak memory. Returns (launch
+    counts, the SLAM object, its data root)."""
+    import torch
+    from isogs_slam_tpu_torch.slam.config import load_experiment_config
+    t0 = time.perf_counter()
+    cfg_path = os.path.join(root, config_rel)
+    cfg = load_experiment_config(cfg_path)
+    dc = cfg["data"]
+    h, w = dc["desired_image_height"], dc["desired_image_width"]
+    data_root = os.path.join(tmp, f"{tag}_data")
+    sets = write_family(
+        layout, data_root, os.path.basename(str(dc["sequence"])), n_frames,
+        h, w, None if yaml_rel is None else os.path.join(root, yaml_rel),
+        device=dev)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {n_frames} frames at {w}x{h} written in the {layout} "
+          f"layout in {time.perf_counter() - t0:.1f} s")
+    launches, tr, mp, slam = cli_path(
+        cfg_path, config_rel, n_frames - 1, ["--device", str(dev), *sets],
+        keep=True, run_dir=os.path.join(tmp, "experiments", tag),
+        min_mask=REPLICA_MIN_MASK)
+    st = slam.stats
+    as_shipped = ((slam.cam.width, slam.cam.height) == (w, h)
+                  and slam.tcfg.num_iters == cfg["tracking"]["num_iters"]
+                  and slam.mcfg.num_iters == cfg["mapping"]["num_iters"]
+                  and slam.config["map_every"] == cfg["map_every"]
+                  and slam.config["mapping_window_size"]
+                  == cfg["mapping_window_size"])
+    s_frame = (sum(st["tracking_frame_time"])
+               + sum(st["mapping_frame_time"])) / n_frames
+    print(f"[family] {tag}: {config_rel} at {w}x{h} "
+          f"({slam.cam.num_tiles} tiles), {type(slam.dataset).__name__}, "
+          f"tracking {slam.tcfg.num_iters} iterations "
+          f"({sum(st['tracking_iters_run'])} run over the frames), mapping "
+          f"{slam.mcfg.num_iters} every {slam.config['map_every']} frames, "
+          f"window {slam.config['mapping_window_size']}; {s_frame:.4f} "
+          f"s/frame (tracking + mapping over {n_frames} frames), "
+          f"{sum(mp) / max(len(mp), 1):.4f} s/phase over {len(mp)} phases, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    phase(f"family {tag}", t0)
+    if not as_shipped:
+        raise AssertionError(f"{config_rel} was not run as shipped")
+    return launches, slam, data_root
+
+
+def families_path(root, tmp, dev):
+    """5s-5y (every FAMILIES entry), then 5z: ScanNet++'s offline configs on
+    its run (post_splatam_opt.py with the iterations cut to POSTOPT_ITERS,
+    then eval_novel_view.py on the held-out split of its result) and
+    ReplicaV2's eval_novel_view.py on its run. Returns [(path name, launch
+    counts)] for the kernels line."""
+    import numpy as np
+    import torch
+    from isogs_slam_tpu_torch.ops import _cuda
+    from isogs_slam_tpu_torch.scripts import eval_novel_view
+    from isogs_slam_tpu_torch.scripts import post_splatam_opt
+    paths, runs = [], {}
+    for tag, config_rel, layout, yaml_rel, n_frames in FAMILIES:
+        torch.cuda.empty_cache()
+        launches, slam, data_root = family_path(
+            root, tmp, dev, tag, config_rel, layout, yaml_rel, n_frames)
+        paths.append((f"{tag} config", launches))
+        runs[tag] = dict(
+            ckpt=os.path.join(slam.output_dir, f"params{n_frames - 1}.npz"),
+            out=slam.output_dir, data=data_root, res=slam.eval_results,
+            yaml=slam.config["data"].get("gradslam_data_cfg"))
+        del slam
+
+    # 5z: the offline configs of the families that ship them
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    run = runs["scannetpp"]
+    slam_res = run["res"]
+    post = post_splatam_opt.main([
+        os.path.join(root, "configs", "scannetpp", "post_splatam_opt.py"),
+        "--device", str(dev), "--set", f"data.basedir={run['data']}",
+        "--set", f"data.param_ckpt_path={run['out']}",
+        "--set", f"workdir={os.path.join(tmp, 'experiments', 'post')}",
+        "--set", f"train.num_iters_mapping={POSTOPT_ITERS}"])
+    torch.cuda.synchronize()
+    paths.append(("scannetpp post-opt", dict(_cuda.LAUNCHES)))
+    res = post.eval_results
+    _offline_numbers(post, "scannetpp post-opt", time.perf_counter() - t0)
+    print(f"[5z] configs/scannetpp/post_splatam_opt.py: iterations cut from "
+          f"30000 to {POSTOPT_ITERS} (GS densification starts after 500: "
+          f"none); {len(post.dataset)} frames read (ignore_bad=False in "
+          f"this config: the is_bad entry is among them, where the SLAM "
+          f"config skipped it), {post.num_frames} optimized with the SLAM "
+          f"run's poses; PSNR {res['Average PSNR']:.3f} dB against the SLAM "
+          f"map's {slam_res['Average PSNR']:.3f}, ATE "
+          f"{res['Final Average ATE RMSE (cm)']:.4f} cm against the SLAM "
+          f"run's {slam_res['Final Average ATE RMSE (cm)']:.4f} (the poses "
+          f"after the flagged entry are held against the next frame's "
+          f"ground truth), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    losses = np.concatenate(post.stats["chunk_loss"])[:, :3]
+    if not (np.isfinite(losses).all() and _finite_state(post.state)):
+        raise AssertionError("scannetpp post-opt: non-finite losses or "
+                             "parameters")
+    runs["scannetpp"]["ckpt"] = os.path.join(
+        post.output_dir, f"params{post.num_frames - 1}.npz")
+    del post
+    phase("scannetpp post-opt (5z)", t0)
+    # the novel-view configs: ScanNet++'s on the post-opt map, ReplicaV2's
+    # on its SLAM run's
+    for tag in NVS_FAMILIES:
+        t0 = time.perf_counter()
+        _cuda.reset_launches()
+        run = runs[tag]
+        ckpt_path = run["ckpt"]
+        args = [os.path.join(root, "configs", tag, "eval_novel_view.py"),
+                "--device", str(dev), "--checkpoint", ckpt_path,
+                "--set", f"data.basedir={run['data']}",
+                "--set", f"workdir={os.path.join(tmp, 'experiments', 'nvs')}"]
+        if run["yaml"] is not None:
+            args += ["--set", f"data.gradslam_data_cfg={run['yaml']}"]
+        nvs = eval_novel_view.main(args)
+        torch.cuda.synchronize()
+        paths.append((f"{tag} NVS", dict(_cuda.LAUNCHES)))
+        print(f"[5z] configs/{tag}/eval_novel_view.py on "
+              f"{os.path.basename(ckpt_path)}: {nvs['Frames']} held-out "
+              f"views, PSNR {nvs['Average NVS PSNR']:.3f} dB, MS-SSIM "
+              f"{nvs['Average NVS MS-SSIM']:.4f}, LPIPS "
+              f"{nvs['Average NVS LPIPS']:.5f}, depth RMSE "
+              f"{nvs['Average NVS Depth RMSE (cm)']:.4f} cm")
+        phase(f"{tag} novel views (5z)", t0)
+        if not (nvs["Frames"] > 0 and all(
+                np.isfinite(v) for v in nvs.values()
+                if isinstance(v, float))):
+            raise AssertionError(f"{tag} NVS metrics not finite: {nvs}")
+    return paths
+
+
 def sharded_mesh_rank(cfg_path, ckpt_path, out_ply, grid_npz) -> int:
     """One rank of 5f's sharded mesh, under torch.distributed.run
     (`chip_smoke.py --sharded-mesh ...`): the density pass with
@@ -2018,8 +2456,10 @@ def main() -> int:
     results = {}
     rng = torch.Generator(device=dev).manual_seed(1)
     with torch.no_grad():
-        # the live demo's 480x360: a half-empty last tile row
-        for c in (cam, pyramid_cam(cam, 1), cam.scaled(480, 360)):
+        # the live demo's 480x360: a half-empty last tile row; ScanNet++'s
+        # 876x584: partial tiles on both edges
+        for c in (cam, pyramid_cam(cam, 1), cam.scaled(480, 360),
+                  cam.scaled(876, 584)):
             check_tile_crop(c, dev)
         for tag, rec in inputs.items():
             g, cnt, tx, bdt, b = (rec["g"], rec["cnt"], rec["tiles_x"],
@@ -2124,24 +2564,34 @@ def main() -> int:
                     flipped_pixels=bad, tiles_x=tx)
                 print(f"[{tag}] {key} {ms:.4f} ms (plain "
                       f"{pms:.2f} ms, bound {bms:.4f} ms by {by})")
-            if tag in ("map", "stripe"):
+            if tag in SEGREDUCE_TAGS:
                 rec["dg"] = dg
             del out, ft, last, tend, out_p, ft_p, gout, dfin, dg_p, diff
 
         # segment reduce at N = capacity on kernel B's bf16 rows written
         # back in expansion order: every tile's rows (the exact mapping
-        # backward's input), then a stripe's rows only (the fast mode's)
+        # backward's input), a stripe's rows only (the fast modes', at
+        # tile_subsample 4 and 8), and every tile's rows at the dataset
+        # families' cameras
         M = rcfg.max_isect(capacity)
         b_map = ctx["bins"][rcfg.max_per_tile]
-        offs = b_map.exp_offsets
-        E = int(offs[-1])
-        lengths = (offs[1:] - offs[:-1]).long()
-        n_seg = offs.shape[0] - 1
-        for key, pos, dg_rows in (
-                ("segreduce", b_map.slot_exp_pos, inputs["map"]["dg"]),
-                ("segreduce[stripe rows]",
-                 b_map.slot_exp_pos[ctx["stripe_sel"]],
-                 inputs["stripe"]["dg"])):
+        c_inputs = [
+            ("segreduce", b_map, b_map.slot_exp_pos, inputs["map"]["dg"]),
+            ("segreduce[stripe rows]", b_map,
+             b_map.slot_exp_pos[ctx["stripe_sel"]], inputs["stripe"]["dg"]),
+            ("segreduce[stripe8 rows]", b_map,
+             b_map.slot_exp_pos[ctx["stripe8_sel"]],
+             inputs["stripe8_512"]["dg"])]
+        for tag in ("vga512", "scannetpp512", "iphone512"):
+            rec = inputs[tag]
+            c_inputs.append((f"segreduce[T={rec['g'].shape[0]}]",
+                             rec["bins"], rec["bins"].slot_exp_pos,
+                             rec["dg"]))
+        for key, b, pos, dg_rows in c_inputs:
+            offs = b.exp_offsets
+            E = int(offs[-1])
+            lengths = (offs[1:] - offs[:-1]).long()
+            n_seg = offs.shape[0] - 1
             d_exp = torch.zeros((M + 1, 10), dtype=torch.bfloat16,
                                 device=dev)
             d_exp[pos.reshape(-1)] = dg_rows[:, :pos.shape[1]].reshape(-1,
@@ -2387,6 +2837,17 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # 5s-5z: every shipped dataset family at its config's own width and
+    # schedule, then the offline and novel-view configs on their runs
+    tmp = tempfile.mkdtemp(prefix="isogs_families_")
+    try:
+        launches_families = families_path(root, tmp, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    check_stripe_through_c(dict(launches_families)["splatam_fast8 config"],
+                           "splatam_fast8 config", stripe_t=600)
+
     # 6. kernels line: launches of the paths, each read after its run
     paths = (("hand-driven", launches_hand), ("pipeline", launches_cli),
              ("post-opt", launches_post), ("offline", launches_offline),
@@ -2396,9 +2857,11 @@ def main() -> int:
              ("multi-device config, 2 ranks", launches_mc),
              ("multi-device config, world size 1", launches_mc1),
              ("bench, exact", launches_bench),
-             ("bench, fast block", launches_bench_fast))
+             ("bench, fast block", launches_bench_fast),
+             *launches_families)
     kernels = []
-    forward_only = ("novel view",)
+    forward_only = ("novel view",) + tuple(f"{t} NVS"
+                                           for t in NVS_FAMILIES)
     for path_name, launches in paths:
         for kname in SOURCES:
             if path_name in forward_only and kname != "composite_fwd":
@@ -2418,8 +2881,8 @@ def main() -> int:
             print(f"[kernels] {key}: held against its plain version "
                   f"({r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms) but "
                   f"launched on no path in this run (the launch counter "
-                  f"does not tell a stripe's rows from all rows)"
-                  if "stripe rows" in key else
+                  f"does not tell one binning's rows from another's)"
+                  if key.startswith("segreduce[") else
                   f"[kernels] {key}: held against its plain version "
                   f"({r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms) but "
                   f"launched on no path in this run")

@@ -67,3 +67,15 @@ class Camera:
         K = np.eye(3, dtype=np.float32)
         K[0, 0], K[1, 1], K[0, 2], K[1, 2] = self.fx, self.fy, self.cx, self.cy
         return K
+
+
+def setup_camera(w: int, h: int, k, w2c=None, near: float = 0.01,
+                 far: float = 100.0) -> Camera:
+    """The reference's `setup_camera` signature: a Camera from the
+    intrinsics `k` (3x3 array or tensor, on any device). `w2c` is taken
+    for signature parity only: the renderer consumes camera-frame
+    Gaussians, and the pose is applied by transform_to_frame."""
+    k = np.asarray(k.detach().cpu() if hasattr(k, "detach") else k)
+    return Camera(width=int(w), height=int(h), fx=float(k[0][0]),
+                  fy=float(k[1][1]), cx=float(k[0][2]), cy=float(k[1][2]),
+                  near=near, far=far)

@@ -87,3 +87,30 @@ def _step_lazy(params, grads, state: AdamState, lrs, eps, b1, b2):
     out = type(params)(*new) if hasattr(params, "_fields") else tuple(new)
     return out, AdamState(mu=tuple(mu), nu=tuple(nu), count=state.count + 1,
                           rcount=tuple(rcount))
+
+
+def mask_rows(state: AdamState, keep_order: torch.Tensor) -> AdamState:
+    """Row-gather the moments (and the lazy per-row counts) by
+    keep_order, as compaction reorders the map's rows."""
+    def g(leaves):
+        return tuple(a[keep_order] if a.ndim >= 1 else a for a in leaves)
+    return AdamState(mu=g(state.mu), nu=g(state.nu), count=state.count,
+                     rcount=None if state.rcount is None
+                     else g(state.rcount))
+
+
+def zero_rows(state: AdamState, rows: torch.Tensor) -> AdamState:
+    """Zero the moments of the rows where the bool mask `rows` [N] is set
+    (a parameter replaced wholesale, as the opacity reset does). The lazy
+    per-row counts are kept: the first step after the reset is
+    bias-corrected as a warm step, as torch keeps its global step."""
+    def z(leaves):
+        out = []
+        for a in leaves:
+            if a.ndim >= 1 and a.shape[0] == rows.shape[0]:
+                a = torch.where(rows.reshape((-1,) + (1,) * (a.ndim - 1)),
+                                torch.zeros_like(a), a)
+            out.append(a)
+        return tuple(out)
+    return AdamState(mu=z(state.mu), nu=z(state.nu), count=state.count,
+                     rcount=state.rcount)

@@ -15,8 +15,10 @@ import re
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..io.images import imread as _imread
+from ..utils.transforms import relative_transformation
 
 
 def natsorted(paths):
@@ -31,12 +33,6 @@ def as_intrinsics_matrix(fx, fy, cx, cy) -> np.ndarray:
     K = np.eye(3)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = fx, fy, cx, cy
     return K
-
-
-def relative_transformation(t0: np.ndarray, t: np.ndarray) -> np.ndarray:
-    """inv(t0) @ t — pose normalization to the first frame
-    (geometryutils.relative_transformation via basedataset.py:259-277)."""
-    return np.linalg.inv(t0) @ t
 
 
 class RGBDDataset:
@@ -80,8 +76,10 @@ class RGBDDataset:
 
         poses = np.stack(poses).astype(np.float64)
         if self.relative_pose and len(poses):
-            poses = np.stack([relative_transformation(poses[0], p)
-                              for p in poses])
+            # pose normalization to the first frame, in float64 on the
+            # host (basedataset.py:259-277)
+            t = torch.from_numpy(poses)
+            poses = relative_transformation(t[:1], t).numpy()
         self.transformed_poses = poses.astype(np.float32)
 
     def __len__(self):

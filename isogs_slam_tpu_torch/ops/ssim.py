@@ -64,10 +64,13 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
             / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2)))
 
 
-def calc_ssim(img1: torch.Tensor, img2: torch.Tensor,
-              window_size: int = 11) -> torch.Tensor:
+def ssim(img1: torch.Tensor, img2: torch.Tensor,
+         window_size: int = 11) -> torch.Tensor:
     """Mean SSIM over [C, H, W] images in [0, 1]."""
     return ssim_map(img1, img2, window_size).mean()
+
+
+calc_ssim = ssim  # reference-name alias
 
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)

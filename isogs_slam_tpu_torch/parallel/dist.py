@@ -27,6 +27,8 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from .. import resolve_device
+
 
 class Mesh(NamedTuple):
     group: object | None    # the process group (None at world size 1)
@@ -109,18 +111,18 @@ def init_distributed(device="cuda") -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
+def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     """A mesh of the first n_devices ranks (all of them by default) with
     this rank's device; n_devices is clamped to the world size by the
-    caller, as the reference clamps to its devices."""
+    caller, as the reference clamps to its devices. The card unless the
+    caller asks for "cpu": without a card it raises (resolve_device)."""
     world = world_size()
     n = world if n_devices is None else int(n_devices)
     if not 1 <= n <= world:
         raise ValueError(f"make_mesh: {n} ranks asked for, the world has "
                          f"{world}")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = rank_device(device) if world > 1 else torch.device(device)
+    device = resolve_device(device)
+    dev = rank_device(device) if world > 1 else device
     return Mesh(group=dist.group.WORLD if world > 1 else None,
                 rank=world_rank(), size=n, world=world, device=dev,
                 backend=dist.get_backend() if world > 1 else None)

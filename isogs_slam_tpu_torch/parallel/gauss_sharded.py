@@ -23,7 +23,7 @@ from .dist import (Mesh, all_gather_shards, all_reduce_, make_mesh,
 GAUSS_AXIS = "gauss"
 
 
-def make_gauss_mesh(n_devices: int | None = None, device=None) -> Mesh:
+def make_gauss_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     return make_mesh(n_devices, device)
 
 

@@ -26,7 +26,7 @@ from .dist import (Mesh, all_gather_shards_grad, make_mesh,
 TILE_AXIS = "tile"
 
 
-def make_tile_mesh(n_devices: int | None = None, device=None) -> Mesh:
+def make_tile_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     return make_mesh(n_devices, device)
 
 

@@ -4,7 +4,7 @@ dataset's split at its ground-truth pose and report PSNR / MS-SSIM / LPIPS
 and depth RMSE / L1.
 
     python -m isogs_slam_tpu_torch.scripts.eval_novel_view <config.py> \\
-        [--checkpoint params800.npz] [--device cpu]
+        [--checkpoint params800.npz] [--device cpu] [--set KEY=VALUE]
 
 Writes <workdir>/<run_name>/eval_nvs/nvs_eval_summary.json and one .txt
 per metric. Runs on config["primary_device"]: "cuda" unless the config or
@@ -30,6 +30,7 @@ from ..ops.ssim import ms_ssim
 from ..slam.config import load_experiment_config
 from ..slam.pipeline import _dataset_from_config, primary_device
 from ..utils.transforms import rotmat_to_quat
+from .splatam import apply_overrides
 
 
 def eval_nvs(dataset, state, cam: Camera, rcfg: RasterConfig, eval_dir: str,
@@ -91,8 +92,14 @@ def main(argv=None):
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--device", type=str, default=None,
                    help="Override config['primary_device'] (cuda or cpu)")
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   dest="overrides",
+                   help="Override a config entry by dotted path, as the "
+                        "SLAM CLI's --set (e.g. --set data.basedir=D). "
+                        "Repeatable.")
     args = p.parse_args(argv)
     config = load_experiment_config(args.config)
+    apply_overrides(config, args.overrides)
     if args.device is not None:
         config["primary_device"] = args.device
     dev = primary_device(config)

@@ -36,6 +36,7 @@ from ..slam.pipeline import (_dataset_from_config, _to_chw_frame,
 from ..slam.pointcloud import add_new_gaussians, initialize_first_frame
 from ..utils.common import seed_everything
 from ..utils.transforms import rotmat_to_quat
+from .splatam import apply_overrides
 
 
 class OfflineGS:
@@ -258,8 +259,8 @@ def offline_splatting(config: dict) -> OfflineGS:
 
 
 def _cli_config(argv, description):
-    """Parse `experiment [--no-eval] [--device D]`; returns (args, config)
-    with the device applied."""
+    """Parse `experiment [--no-eval] [--device D] [--set KEY=VALUE ...]`;
+    returns (args, config) with the overrides and the device applied."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("experiment", type=str,
                         help="Path to experiment config .py")
@@ -268,8 +269,14 @@ def _cli_config(argv, description):
     parser.add_argument("--device", type=str, default=None,
                         help="Override config['primary_device'] "
                              "(cuda or cpu)")
+    parser.add_argument("--set", action="append", default=[],
+                        metavar="KEY=VALUE", dest="overrides",
+                        help="Override a config entry by dotted path, as "
+                             "the SLAM CLI's --set (e.g. --set "
+                             "train.num_iters_mapping=300). Repeatable.")
     args = parser.parse_args(argv)
     config = load_experiment_config(args.experiment)
+    apply_overrides(config, args.overrides)
     if args.device is not None:
         config["primary_device"] = args.device
     config.setdefault("primary_device", "cuda")

@@ -27,16 +27,24 @@ import os
 import sys
 
 from ..parallel import dist as pdist
-from ..slam.config import copy_config_for_provenance, load_experiment_config
+from ..slam.config import (copy_config_for_provenance, inject_defaults,
+                           load_experiment_config)
 from ..slam.pipeline import SLAM, primary_device
 from ..utils.common import seed_everything
 
 
-def apply_overrides(config: dict, overrides: list[str]):
+def apply_overrides(config: dict, overrides: list[str], defaults=None):
     """Apply `--set a.b.c=value` entries in place (value = Python literal
     when it parses, raw string otherwise). Keys must already exist: a typo
-    silently creating a new key would un-ablate the ablation."""
+    silently creating a new key would un-ablate the ablation. With
+    `defaults` (a function that fills in the runtime defaults, as
+    slam.config.inject_defaults), a key the config leaves to its defaults
+    counts as existing and is created; the defaults themselves are still
+    filled in later, after the overrides, so those derived from other keys
+    (the densification size from the image size) follow them."""
     import ast
+    import copy
+    known = defaults(copy.deepcopy(config)) if defaults else config
     for item in overrides:
         key, sep, raw = item.partition("=")
         if not sep:
@@ -45,13 +53,14 @@ def apply_overrides(config: dict, overrides: list[str]):
             value = ast.literal_eval(raw)
         except (ValueError, SyntaxError):
             value = raw
-        node = config
+        node, ref = config, known
         parts = key.strip().split(".")
         for p in parts[:-1]:
-            if not isinstance(node, dict) or p not in node:
+            if not isinstance(ref, dict) or p not in ref:
                 raise SystemExit(f"--set: no such config path {key!r}")
-            node = node[p]
-        if not isinstance(node, dict) or parts[-1] not in node:
+            ref = ref[p]
+            node = node.setdefault(p, {})
+        if not isinstance(ref, dict) or parts[-1] not in ref:
             raise SystemExit(f"--set: no such config key {key!r}")
         node[parts[-1]] = value
         print(f"[config] override {key} = {value!r}")
@@ -75,12 +84,15 @@ def main(argv=None):
                              "--set mapping.loss_weights.iso=1.0 "
                              "(value parsed as a Python literal; bare "
                              "strings pass through). Repeatable. Applied "
-                             "after the config module loads, recorded in "
-                             "the provenance copy's overrides.txt.")
+                             "after the config module loads; a key the "
+                             "config leaves to its runtime defaults "
+                             "(raster.*, capacity_granule) can be set too. "
+                             "Recorded in the provenance copy's "
+                             "overrides.txt.")
     args = parser.parse_args(argv)
 
     config = load_experiment_config(args.experiment)
-    apply_overrides(config, args.overrides)
+    apply_overrides(config, args.overrides, defaults=inject_defaults)
     if args.device is not None:
         config["primary_device"] = args.device
     seed_everything(config.get("seed", 0))

@@ -2,8 +2,8 @@
 
 An experiment config is an executable Python module exposing a `config`
 dict, loaded via SourceFileLoader. Missing keys get the same runtime
-defaults as in the JAX package, so a config of either package differs only
-in `primary_device`.
+defaults as in the JAX package, key for key; a missing `primary_device`
+means the card (slam/pipeline.py::primary_device).
 """
 from __future__ import annotations
 
@@ -40,7 +40,6 @@ def inject_defaults(config: dict) -> dict:
     config.setdefault("save_checkpoints", False)
     config.setdefault("load_checkpoint", False)
     config.setdefault("use_wandb", False)
-    config.setdefault("primary_device", "cuda")
     # rasterizer knobs (absent in reference configs -> defaults)
     config.setdefault("raster", {})
     config["raster"].setdefault("max_per_tile", 512)

@@ -400,3 +400,10 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
     if dens is not None:
         bin_stats = torch.cat([bin_stats, dens_counts])
     return st, torch.stack(logs), bin_stats
+
+
+def estimated_pose(cam_rots: torch.Tensor, cam_trans: torch.Tensor,
+                   time_idx: int):
+    """Normalized (quat, trans) at a frame index; cam_rots [4,T]."""
+    q = cam_rots[:, time_idx]
+    return q / torch.linalg.norm(q), cam_trans[:, time_idx]

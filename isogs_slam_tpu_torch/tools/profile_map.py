@@ -15,6 +15,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import glob
+import gzip
+import json
 import os
 import time
 
@@ -103,6 +106,39 @@ def top_ops(prof, top=40, cuda=True):
     total = sum(by.values())
     rows = sorted(by.items(), key=lambda r: -r[1])[:top]
     return [(n, ms, ms / max(total, 1e-12)) for n, ms in rows], total
+
+
+# the device lanes of a torch.profiler Chrome trace
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def parse_trace(trace_dir, top=40):
+    """Sum device time by op name from the newest Chrome trace under
+    trace_dir (`--trace-dir`'s trace.json, or a .json.gz), print the top
+    ops and return {name: ms}; None when there is no trace."""
+    paths = [p for ext in ("*.json", "*.json.gz") for p in glob.glob(
+        os.path.join(trace_dir, "**", ext), recursive=True)]
+    if not paths:
+        print("no trace.json found under", trace_dir)
+        return None
+    path = max(paths, key=os.path.getmtime)
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        data = json.load(f)
+    by_op = {}
+    total = 0.0
+    for e in data.get("traceEvents", []):
+        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
+            continue
+        dur = e.get("dur", 0) / 1e3  # us -> ms
+        name = e.get("name", "?")
+        by_op[name] = by_op.get(name, 0.0) + dur
+        total += dur
+    print(f"\n=== device op time (total {total:.1f} ms) "
+          f"from {os.path.basename(path)} ===")
+    for name, ms in sorted(by_op.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"{ms:10.2f} ms  {100*ms/max(total,1e-9):5.1f}%  {name[:110]}")
+    return by_op
 
 
 def main(argv=None):

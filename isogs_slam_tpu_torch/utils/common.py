@@ -19,3 +19,9 @@ def seed_everything(seed: int = 42):
     np.random.seed(seed)
     torch.manual_seed(seed)
     print(f"Seed set to: {seed}")
+
+
+def params2cpu(params: dict) -> dict:
+    """{name: tensor on any device} -> {name: numpy array on the host}."""
+    return {k: torch.as_tensor(v).detach().cpu().numpy()
+            for k, v in params.items()}

@@ -91,3 +91,11 @@ def transform_to_frame(means3d, unnorm_rots, cam_quat, cam_trans,
     means_cam = transform_points(w2c, means3d)
     rots_cam = quat_mult(cam_quat_n[None, :], normalize(unnorm_rots))
     return means_cam, rots_cam
+
+
+def relative_transformation(t1: torch.Tensor, t2: torch.Tensor
+                            ) -> torch.Tensor:
+    """inv(t1) @ t2 ([..., 4, 4]), the T with t1 @ T == t2: the pose
+    normalization of the dataset layer (geometryutils.
+    relative_transformation), a general inverse in t1's dtype."""
+    return torch.linalg.inv(t1) @ t2
