@@ -57,15 +57,24 @@ def evaluate_mesh_geometry(pred_verts, pred_faces, gt_verts, gt_faces,
     rng = np.random.default_rng(seed)
     pred_pts = sample_surface(pred_verts, pred_faces, num_samples, rng)
     gt_pts = sample_surface(gt_verts, gt_faces, num_samples, rng)
-    f, precision, recall = compute_f_score(pred_pts, gt_pts, f_threshold)
+    # each direction's nearest distances once: the functions above query
+    # each tree again for every metric (as the reference does), for the
+    # same numbers; a far-from-complete mesh makes each of those queries
+    # seconds long
+    dp, _ = cKDTree(gt_pts).query(pred_pts, k=1, workers=-1)
+    dg, _ = cKDTree(pred_pts).query(gt_pts, k=1, workers=-1)
+    accuracy, completion = float(np.mean(dp)), float(np.mean(dg))
+    precision = float(np.sum(dp < f_threshold) / len(pred_pts))
+    recall = float(np.sum(dg < f_threshold) / len(gt_pts))
+    f = (2 * precision * recall / (precision + recall)
+         if precision + recall > 0 else 0.0)
     return {
-        "accuracy": compute_accuracy(pred_pts, gt_pts),
-        "completion": compute_completion(pred_pts, gt_pts),
-        "chamfer_distance": compute_chamfer_distance(pred_pts, gt_pts),
+        "accuracy": accuracy,
+        "completion": completion,
+        "chamfer_distance": (accuracy + completion) / 2.0,
         "f_score": f, "precision": precision, "recall": recall,
-        "hausdorff_95": compute_hausdorff_distance(pred_pts, gt_pts, 95),
-        "completion_ratio": compute_completion_ratio(pred_pts, gt_pts,
-                                                     f_threshold),
+        "hausdorff_95": float(np.percentile(np.concatenate([dp, dg]), 95)),
+        "completion_ratio": recall,
         "num_samples": num_samples,
         "f_threshold": f_threshold,
     }

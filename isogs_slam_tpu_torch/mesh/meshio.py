@@ -73,20 +73,27 @@ def write_ply_mesh(path: str, verts: np.ndarray, faces: np.ndarray,
                         .encode())
 
 
+def _rows(fmt: str, a: np.ndarray, chunk: int = 65536) -> str:
+    """Each row of a 2-D array through one %-format line: the bytes of a
+    per-row f-string loop, at C speed (a mesh at 1 cm has millions)."""
+    a = np.asarray(a)
+    return "".join((fmt * len(c)) % tuple(c.ravel().tolist())
+                   for c in (a[i:i + chunk]
+                             for i in range(0, a.shape[0], chunk)))
+
+
 def write_obj(path: str, verts: np.ndarray, faces: np.ndarray,
               vertex_normals: np.ndarray | None = None):
+    t = np.asarray(faces) + 1
     with open(path, "w") as f:
         f.write("# isogs_slam_tpu mesh\n")
-        for v in np.asarray(verts):
-            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        f.write(_rows("v %.6f %.6f %.6f\n", verts))
         if vertex_normals is not None:
-            for vn in np.asarray(vertex_normals):
-                f.write(f"vn {vn[0]:.6f} {vn[1]:.6f} {vn[2]:.6f}\n")
-            for t in np.asarray(faces) + 1:
-                f.write(f"f {t[0]}//{t[0]} {t[1]}//{t[1]} {t[2]}//{t[2]}\n")
+            f.write(_rows("vn %.6f %.6f %.6f\n", vertex_normals))
+            f.write(_rows("f %d//%d %d//%d %d//%d\n",
+                          np.repeat(t, 2, axis=1)))
         else:
-            for t in np.asarray(faces) + 1:
-                f.write(f"f {t[0]} {t[1]} {t[2]}\n")
+            f.write(_rows("f %d %d %d\n", t))
 
 
 def write_stl(path: str, verts: np.ndarray, faces: np.ndarray):

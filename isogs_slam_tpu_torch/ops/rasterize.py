@@ -32,7 +32,8 @@ import torch
 
 from ..core.camera import TILE, Camera
 from ..utils.transforms import normalize, quat_mult
-from .composite import (ALPHA_MIN, composite_backward, composite_forward,
+from .composite import (ALPHA_MAX, ALPHA_MIN, T_EPS,  # noqa: F401
+                        composite_backward, composite_forward,
                         composite_tiles)
 from .segreduce import segment_reduce_rows
 

@@ -66,6 +66,11 @@ class KeyframeLibrary:
     def set_current(self, color_chw, depth_1hw, quat, trans):
         self._write(self.current_slot, color_chw, depth_1hw, quat, trans)
 
+    def update_pose(self, slot: int, quat, trans, w2c: np.ndarray):
+        self.quats[slot] = quat
+        self.trans[slot] = trans
+        self.w2cs[slot] = np.asarray(w2c)
+
 
 def backproject_sampled(depth_hw: np.ndarray, K: np.ndarray,
                         w2c: np.ndarray, sampled: np.ndarray) -> np.ndarray:

@@ -26,6 +26,10 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+# the reference's name for the same function
+build_rotation = quat_to_rotmat
+
+
 def quat_mult(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product, broadcasting over leading dims."""
     w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]

@@ -18,7 +18,9 @@ import torch
 
 from isogs_slam_tpu.core import camera as JC
 from isogs_slam_tpu.core import optim as JO
+from isogs_slam_tpu.ops import rasterize as JR
 from isogs_slam_tpu.ops import ssim as JS
+from isogs_slam_tpu.slam import keyframes as JK
 from isogs_slam_tpu.slam import mapping as JM
 from isogs_slam_tpu.slam.config import inject_defaults as jinject
 from isogs_slam_tpu.slam.config import load_experiment_config as jload
@@ -27,10 +29,13 @@ from isogs_slam_tpu.utils import common as JCO
 from isogs_slam_tpu.utils import transforms as JT
 from isogs_slam_tpu_torch.core import camera as C
 from isogs_slam_tpu_torch.core import optim as O
+from isogs_slam_tpu_torch.ops import composite as CM
+from isogs_slam_tpu_torch.ops import rasterize as R
 from isogs_slam_tpu_torch.ops import ssim as S
 from isogs_slam_tpu_torch.parallel.dist import make_mesh
 from isogs_slam_tpu_torch.parallel.gauss_sharded import make_gauss_mesh
 from isogs_slam_tpu_torch.parallel.tile_sharded import make_tile_mesh
+from isogs_slam_tpu_torch.slam import keyframes as K
 from isogs_slam_tpu_torch.slam import mapping as M
 from isogs_slam_tpu_torch.slam.config import (inject_defaults,
                                               load_experiment_config)
@@ -209,6 +214,53 @@ def _relative_transformation():
                                atol=1e-5)
 
 
+def _update_pose():
+    """Two keyframes added, then one pose replaced: the libraries' quats,
+    trans and w2cs equal (images untouched by the update)."""
+    rng = _rng()
+    h, w = 6, 8
+    jlib, lib = JK.KeyframeLibrary(3, h, w), K.KeyframeLibrary(3, h, w,
+                                                               device="cpu")
+    poses = rng.normal(size=(3, 7)).astype(np.float32)
+    w2cs = rng.normal(size=(3, 4, 4))
+    for i in range(2):
+        color = rng.uniform(size=(3, h, w)).astype(np.float32)
+        depth = rng.uniform(1, 3, (1, h, w)).astype(np.float32)
+        jlib.add_keyframe(i, jnp.asarray(color), jnp.asarray(depth),
+                          jnp.asarray(poses[i, :4]), jnp.asarray(poses[i, 4:]),
+                          w2cs[i])
+        lib.add_keyframe(i, torch.tensor(color), torch.tensor(depth),
+                         torch.tensor(poses[i, :4]), torch.tensor(poses[i, 4:]),
+                         w2cs[i])
+    jlib.update_pose(1, jnp.asarray(poses[2, :4]), jnp.asarray(poses[2, 4:]),
+                     w2cs[2])
+    lib.update_pose(1, torch.tensor(poses[2, :4]), torch.tensor(poses[2, 4:]),
+                    w2cs[2])
+    np.testing.assert_array_equal(lib.quats.numpy(), np.asarray(jlib.quats))
+    np.testing.assert_array_equal(lib.trans.numpy(), np.asarray(jlib.trans))
+    np.testing.assert_array_equal(np.stack(lib.w2cs), np.stack(jlib.w2cs))
+    np.testing.assert_array_equal(lib.colors.numpy(), np.asarray(jlib.colors))
+    assert lib.time_indices == jlib.time_indices == [0, 1]
+
+
+def _build_rotation():
+    """The reference's alias of quat_to_rotmat: 1e-6 on unnormalised
+    quaternions."""
+    q = _rng().normal(size=(2, 5, 4)).astype(np.float32)
+    assert T.build_rotation is T.quat_to_rotmat
+    np.testing.assert_allclose(T.build_rotation(torch.tensor(q)).numpy(),
+                               np.asarray(JT.build_rotation(jnp.asarray(q))),
+                               atol=1e-6)
+
+
+def _raster_constants():
+    """ALPHA_MAX, ALPHA_MIN and T_EPS importable from ops/rasterize.py as in
+    the reference, with one definition (ops/composite.py)."""
+    for name in ("ALPHA_MAX", "ALPHA_MIN", "T_EPS"):
+        assert getattr(R, name) == getattr(JR, name)
+        assert getattr(R, name) is getattr(CM, name)
+
+
 def _parse_trace(tmp_path, capsys):
     """A trace whose device time each package's profiler would record: the
     JAX tool reads the TPU's XLA-op lane of a jax.profiler trace.json.gz,
@@ -254,7 +306,10 @@ PUBLIC = {"core/camera.py::setup_camera": _setup_camera,
           "slam/mapping.py::estimated_pose": _estimated_pose,
           "utils/common.py::params2cpu": _params2cpu,
           "utils/transforms.py::relative_transformation":
-              _relative_transformation}
+              _relative_transformation,
+          "slam/keyframes.py::KeyframeLibrary.update_pose": _update_pose,
+          "utils/transforms.py::build_rotation": _build_rotation,
+          "ops/rasterize.py::ALPHA_MAX,ALPHA_MIN,T_EPS": _raster_constants}
 
 
 @pytest.mark.parametrize("name", list(PUBLIC))
