@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
+from ..utils import spans
 
 
 class GaussianParams(NamedTuple):
@@ -91,13 +92,17 @@ def append_rows(state: MapState, rows: GaussianParams, valid: torch.Tensor,
     v = valid.to(torch.int64)
     dest = state.hwm + torch.cumsum(v, 0) - v
     keep = valid & (dest < C)
-    idx = dest[keep]
-    params = GaussianParams(*[p.index_put((idx,), r[keep])
-                              for p, r in zip(state.params, rows)])
+    # boolean masks size their results on the host: each waits for the card
+    with spans.span("sync.append_rows"):
+        idx = dest[keep]
+        params = GaussianParams(*[p.index_put((idx,), r[keep])
+                                  for p, r in zip(state.params, rows)])
     alive = state.alive.index_fill(0, idx, True)
     if torch.is_tensor(time_idx) and time_idx.dim() > 0:
+        with spans.span("sync.append_rows"):
+            kept_t = time_idx[keep]
         timestep = state.timestep.index_put(
-            (idx,), time_idx[keep].to(state.timestep.dtype))
+            (idx,), kept_t.to(state.timestep.dtype))
     else:
         timestep = state.timestep.index_fill(0, idx, float(time_idx))
     n_add = torch.minimum(torch.sum(v), C - state.hwm)

@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import spans
+
 
 class AdamState(NamedTuple):
     mu: tuple
@@ -35,9 +37,12 @@ def init(params, lazy: bool = False) -> AdamState:
 def _bias_correction(b: float, count, device) -> torch.Tensor:
     """1 - b^count via expm1/log1p in f32, as the reference computes it;
     count is a host number or a tensor of per-row counts."""
-    c = torch.as_tensor(count, device=device).to(torch.float32)
-    return -torch.expm1(c * torch.log1p(
-        torch.tensor(b - 1.0, dtype=torch.float32, device=device)))
+    # host numbers copied to the card: each blocking copy waits for its
+    # queue
+    with spans.span("sync.adam_bias"):
+        c = torch.as_tensor(count, device=device).to(torch.float32)
+        b_1 = torch.tensor(b - 1.0, dtype=torch.float32, device=device)
+    return -torch.expm1(c * torch.log1p(b_1))
 
 
 def step(params, grads, state: AdamState, lrs, eps: float = 1e-8,

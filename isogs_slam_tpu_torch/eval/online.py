@@ -16,6 +16,8 @@ import os
 
 import numpy as np
 
+from ..utils import spans
+
 
 def _pose_errors(slam, time_idx: int):
     """(latest point error, relative point error, running ATE RMSE) —
@@ -106,17 +108,21 @@ class OnlineEvaluator:
         from .metrics import psnr as psnr_np
 
         q, t = slam._pose(time_idx)
-        rim, rdepth, sil = (x.cpu().numpy()
-                            for x in render_at_pose(slam, q, t))
-        gt_im = torch.as_tensor(gt_im).cpu().numpy().astype(np.float32)
-        gt_depth = torch.as_tensor(gt_depth).cpu().numpy().astype(np.float32)
+        rendered = render_at_pose(slam, q, t)
+        with spans.span("sync.eval_read"):
+            rim, rdepth, sil = (x.cpu().numpy() for x in rendered)
+            gt_im = torch.as_tensor(gt_im).cpu().numpy().astype(np.float32)
+            gt_depth = torch.as_tensor(gt_depth).cpu().numpy().astype(
+                np.float32)
 
         valid = gt_depth > 0
         # full-frame variant (mapping_iters > 0 path, eval_helpers.py:368+)
         p = float(psnr_np(rim * valid, gt_im * valid))
-        s = float(ms_ssim(torch.as_tensor(rim * valid, device=slam.device),
-                          torch.as_tensor(gt_im * valid,
-                                          device=slam.device)))
+        with spans.span("sync.eval_ssim"):
+            s = float(ms_ssim(torch.as_tensor(rim * valid,
+                                              device=slam.device),
+                              torch.as_tensor(gt_im * valid,
+                                              device=slam.device)))
         diff = (rdepth - gt_depth) * valid
         denom = max(valid.sum(), 1)
         rmse = float(np.sqrt(diff ** 2).sum() / denom)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from . import _cuda
 
 TILE = 16
@@ -387,9 +388,10 @@ class _CompositeTiles(torch.autograd.Function):
     def backward(ctx, gout, dfinal):
         gdata, counts, *saved = ctx.saved_tensors
         F, tiles_x, sq_col, bwd_bf16, chunk = ctx.args
-        dg = composite_backward(
-            gdata, counts, gout, dfinal, saved or None, F, tiles_x, sq_col,
-            torch.bfloat16 if bwd_bf16 else torch.float32, chunk)
+        with spans.fine("render.composite_bwd"):
+            dg = composite_backward(
+                gdata, counts, gout, dfinal, saved or None, F, tiles_x,
+                sq_col, torch.bfloat16 if bwd_bf16 else torch.float32, chunk)
         # the cotangent crosses the Function boundary in gdata's dtype
         return dg.to(gdata.dtype), None, None, None, None, None, None
 

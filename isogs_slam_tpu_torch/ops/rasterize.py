@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.camera import TILE, Camera
+from ..utils import spans
 from ..utils.transforms import normalize, quat_mult
 from .composite import (ALPHA_MAX, ALPHA_MIN, T_EPS,  # noqa: F401
                         composite_backward, composite_forward,
@@ -166,6 +167,7 @@ def _tile_rect(u, v, r, cam: Camera):
             cl((v + r + TILE - 1) / TILE, gy))
 
 
+@spans.fine_call("render.project")
 def project_gaussians(means_cam, quats, log_scales, alive, cam: Camera,
                       margin_px: float = 0.0,
                       means2d_offset=None) -> Projected:
@@ -363,7 +365,8 @@ def _expand(proj: Projected, cam: Camera, cfg: RasterConfig, db: int,
     span_y = torch.clamp(rmax[:, 1] - rmin[:, 1], min=0)
     counts = torch.where(valid, span_x * span_y, torch.zeros_like(span_x))
     offs = torch.cumsum(counts, 0) - counts            # exclusive prefix
-    total = int(counts.sum())                          # one host sync
+    with spans.span("sync.bin_total"):
+        total = int(counts.sum())                      # one host sync
     E = min(total, cfg.max_isect(N))                   # entries kept
 
     depth = proj.depth.detach()
@@ -386,6 +389,7 @@ def _expand(proj: Projected, cam: Camera, cfg: RasterConfig, db: int,
     return src, (tile_id << db) | margin_bit | qz[src], offs, total
 
 
+@spans.fine_call("render.bin")
 @torch.no_grad()
 def bin_gaussians_batched(projs, cam: Camera, cfg: RasterConfig,
                           emit_exp: bool = False, opacity=None,
@@ -444,12 +448,17 @@ def bin_gaussians_batched(projs, cam: Camera, cfg: RasterConfig,
         if emit_exp:
             slot_exp_pos = torch.where(k_in[b], slot_pos[b] - int(base[b]),
                                        M)
-            exp_offsets = torch.clamp(
-                torch.cat([offs, offs.new_tensor([total])]), max=M
-            ).to(torch.int32)
+            # the expansion's size copied back to the card (a blocking
+            # copy, as the one below)
+            with spans.span("sync.bin_count_upload"):
+                total_t = offs.new_tensor([total])
+            exp_offsets = torch.clamp(torch.cat([offs, total_t]), max=M
+                                      ).to(torch.int32)
+        with spans.span("sync.bin_count_upload"):
+            n_isect = torch.tensor(total, device=dev)
         binning = Binning(
             tile_gauss=tile_gauss[b], tile_count=tile_count[b],
-            n_isect=torch.tensor(total, device=dev),
+            n_isect=n_isect,
             n_overflow=max(total - M, 0) + dropped[b],
             n_true_overflow=true_dropped[b], slot_exp_pos=slot_exp_pos,
             exp_offsets=exp_offsets)
@@ -497,8 +506,10 @@ class _CompositeTableFused(torch.autograd.Function):
         n, m_cap, F, tiles_x, sq_col, live_cols, scatter_bf16, chunk = \
             ctx.args
         acc = torch.bfloat16 if scatter_bf16 else torch.float32
-        dg = composite_backward(gdata, counts, gout, dfinal, saved or None,
-                                F, tiles_x, sq_col, acc, chunk)
+        with spans.fine("render.composite_bwd"):
+            dg = composite_backward(gdata, counts, gout, dfinal,
+                                    saved or None, F, tiles_x, sq_col, acc,
+                                    chunk)
         K = slot_exp_pos.shape[1]
         dtab = _expansion_reduce(dg[:, :K], slot_exp_pos, exp_offsets, m_cap,
                                  n, live_cols)
@@ -506,6 +517,7 @@ class _CompositeTableFused(torch.autograd.Function):
                 None, None)
 
 
+@spans.fine_call("render.expansion_reduce")
 def _expansion_reduce(dg, slot_exp_pos, exp_offsets, m_cap: int, n: int,
                       live_cols):
     """Per-slot gradient rows dg [T, K, C] (f32 or bf16) -> d table [n, C]
@@ -516,13 +528,16 @@ def _expansion_reduce(dg, slot_exp_pos, exp_offsets, m_cap: int, n: int,
     covers (K cap, a tile subset) stay zero."""
     C = dg.shape[2]
     cols = list(live_cols) if live_cols is not None else list(range(C))
-    dsub = dg[..., cols].reshape(-1, len(cols))
+    # indexing by a host list copies it to the card: a blocking copy
+    with spans.span("sync.live_cols"):
+        dsub = dg[..., cols].reshape(-1, len(cols))
     d_exp = torch.zeros((m_cap + 1, len(cols)), dtype=dg.dtype,
                         device=dg.device)
     d_exp[slot_exp_pos.reshape(-1)] = dsub
     planar = segment_reduce_rows(d_exp, exp_offsets)     # [L, n] f32
     dtab = torch.zeros((n, C), dtype=torch.float32, device=dg.device)
-    dtab[:, cols] = planar.T
+    with spans.span("sync.live_cols"):
+        dtab[:, cols] = planar.T
     return dtab
 
 
@@ -548,6 +563,7 @@ class _GatherRowsSegreduce(torch.autograd.Function):
                 None, None, None, None, None, None)
 
 
+@spans.fine_call("render.index_add")
 def _index_add_rows(dg, idx, n: int, live_cols, scatter_bf16: bool):
     """Per-slot gradient rows dg [T, K, C] -> d table [n, C] in dg's dtype
     by index_add_ of the live columns (accumulated in bf16 when
@@ -555,11 +571,14 @@ def _index_add_rows(dg, idx, n: int, live_cols, scatter_bf16: bool):
     zero."""
     cols = list(live_cols)
     acc = torch.bfloat16 if scatter_bf16 else dg.dtype
-    dsub = dg[..., cols].reshape(-1, len(cols)).to(acc)
+    # indexing by a host list copies it to the card: a blocking copy
+    with spans.span("sync.live_cols"):
+        dsub = dg[..., cols].reshape(-1, len(cols)).to(acc)
     sub = torch.zeros((n, len(cols)), dtype=acc, device=dg.device)
     sub.index_add_(0, idx.reshape(-1), dsub)
     dtab = torch.zeros((n, dg.shape[-1]), dtype=dg.dtype, device=dg.device)
-    dtab[:, cols] = sub.to(dg.dtype)
+    with spans.span("sync.live_cols"):
+        dtab[:, cols] = sub.to(dg.dtype)
     return dtab
 
 
@@ -608,12 +627,15 @@ def composite(proj: Projected, opacity, features, binning: Binning,
     if binning.slot_exp_pos is None:
         raise ValueError("composite needs a binning made with "
                          "emit_exp=True")
-    return _CompositeTableFused.apply(
-        table, binning.tile_gauss, binning.tile_count, binning.slot_exp_pos,
-        binning.exp_offsets, cfg.max_isect(table.shape[0]), F, cam.tiles_x,
-        sq_col, live, cfg.grad_scatter_bf16, cfg.tile_chunk)
+    with spans.fine("render.composite"):
+        return _CompositeTableFused.apply(
+            table, binning.tile_gauss, binning.tile_count,
+            binning.slot_exp_pos, binning.exp_offsets,
+            cfg.max_isect(table.shape[0]), F, cam.tiles_x, sq_col, live,
+            cfg.grad_scatter_bf16, cfg.tile_chunk)
 
 
+@spans.fine_call("render.composite")
 def composite_gdata(gdata, counts, cam: Camera, cfg: RasterConfig, F: int,
                     sq_col=None, bwd_bf16: bool = False):
     """Compositing of already-assembled records gdata [T, K, 6+F]
@@ -828,6 +850,7 @@ def gather_raw_table(params, tile_gauss: torch.Tensor) -> torch.Tensor:
     return raw.detach()[tile_gauss]
 
 
+@spans.fine_call("render.project")
 def _slot_gdata(raw, cam_quat, cam_trans, cam: Camera, tile_ids=None):
     """Per-slot world->camera transform + EWA projection of a frozen raw
     table [T, K, RAW_COLS] -> composite records [T, K, 10]. Slots whose

@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import spans
+
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
 
 
@@ -51,7 +53,9 @@ def median_alive(values, alive):
                                torch.full_like(values, float("inf")))).values
     n = torch.sum(alive.to(torch.int64))
     idx = torch.clamp(n // 2, 0, values.shape[0] - 1)
-    return v[idx]
+    # indexing by a 0-d tensor reads the index back
+    with spans.span("sync.median_index"):
+        return v[idx]
 
 
 def default_cell_size(log_scales, alive, factor: float = 2.5):
@@ -73,7 +77,9 @@ def build_hash_grid(points, alive, cell_size, table_size: int = 0
     h = _hash_cells(cells, table_size)
     h = torch.where(alive, h, torch.full_like(h, table_size))
     order = torch.sort(h, stable=True).indices
-    counts = torch.bincount(h, minlength=table_size + 1)[:table_size]
+    # bincount on the card sizes its output from the largest key: a read
+    with spans.span("sync.hash_grid"):
+        counts = torch.bincount(h, minlength=table_size + 1)[:table_size]
     ends = torch.cumsum(counts, 0)
     starts = ends - counts
     return HashGrid(order=order, cell_of=_pack_cells(cells)[order],

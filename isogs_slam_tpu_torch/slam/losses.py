@@ -20,6 +20,7 @@ from ..ops.rasterize import (MAPPING_LIVE_COLS, TRACKING_LIVE_COLS,
                              render_rgbd_sil_slots_subset,
                              render_tiles_subset, tiles_to_image)
 from ..ops.ssim import calc_ssim, ssim_map
+from ..utils import spans
 from ..utils.transforms import transform_to_frame
 
 
@@ -61,6 +62,7 @@ class LossOutputs(NamedTuple):
     mask_frac: torch.Tensor
 
 
+@spans.fine_call("loss.photometric")
 def _photometric_terms(im, depth, silhouette, depth_sq, gt_im, gt_depth,
                        lcfg: LossConfig):
     """Masks + RGB/depth loss terms. Returns (loss_im, loss_depth, mask).
@@ -211,16 +213,19 @@ def _isogs_terms(params: GaussianParams, alive, lcfg: LossConfig,
                  iso_grid=None):
     """Flat + iso regularizers; the iso loss reads `iso_pool` when given,
     else finds its queries' neighbours afresh (on `iso_grid` by hash)."""
-    loss_flat = flat_loss(params.log_scales, alive)
+    with spans.fine("loss.flat"):
+        loss_flat = flat_loss(params.log_scales, alive)
     if lcfg.calc_iso:
-        loss_iso, mean_density = iso_surface_loss(
-            params.means3d, params.unnorm_rotations, params.log_scales,
-            params.logit_opacities, alive, iso_pool,
-            sample_size=lcfg.iso_sample_size,
-            target_saturation=lcfg.iso_target, sel=iso_sel,
-            generator=generator, k=lcfg.iso_k, knn_method=lcfg.knn_method,
-            hash_cap=lcfg.hash_cap, hash_table_size=lcfg.hash_table_size,
-            knn_block=lcfg.knn_block, grid=iso_grid)
+        with spans.fine("loss.iso"):
+            loss_iso, mean_density = iso_surface_loss(
+                params.means3d, params.unnorm_rotations, params.log_scales,
+                params.logit_opacities, alive, iso_pool,
+                sample_size=lcfg.iso_sample_size,
+                target_saturation=lcfg.iso_target, sel=iso_sel,
+                generator=generator, k=lcfg.iso_k,
+                knn_method=lcfg.knn_method, hash_cap=lcfg.hash_cap,
+                hash_table_size=lcfg.hash_table_size,
+                knn_block=lcfg.knn_block, grid=iso_grid)
     else:
         loss_iso = torch.zeros((), device=alive.device)
         mean_density = torch.zeros((), device=alive.device)

@@ -32,6 +32,7 @@ from ..ops.rasterize import (RasterConfig, bin_gaussians,
                              project_gaussians, subset_uses_segreduce,
                              tile_pixel_validity)
 from ..ops.spatial_hash import build_hash_grid, default_cell_size
+from ..utils import spans
 from ..utils.transforms import transform_to_frame
 from .losses import LossConfig, compute_loss, compute_loss_subsampled
 
@@ -126,17 +127,19 @@ def draw_stripes(iter_slots, n_stripes: int, tile_cycle: bool,
     uniform draws. One transfer to the host for the whole phase."""
     n = len(iter_slots)
     if not tile_cycle:
-        return torch.randint(0, n_stripes, (n,), generator=generator,
-                             device=device).tolist()
+        with spans.span("sync.stripes"):
+            return torch.randint(0, n_stripes, (n,), generator=generator,
+                                 device=device).tolist()
     seen, pairs = {}, []
     for s in iter_slots:
         v = seen.get(s, 0)
         seen[s] = v + 1
         pairs.append((s, v // n_stripes, v % n_stripes))
     cycles = sorted({(s, c) for s, c, _ in pairs})
-    perms = torch.argsort(torch.rand((len(cycles), n_stripes),
-                                     generator=generator, device=device),
-                          dim=1).tolist()
+    with spans.span("sync.stripes"):
+        perms = torch.argsort(torch.rand((len(cycles), n_stripes),
+                                         generator=generator, device=device),
+                              dim=1).tolist()
     row = {sc: perms[i] for i, sc in enumerate(cycles)}
     return [row[(s, c)][j] for s, c, j in pairs]
 
@@ -315,17 +318,19 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
         emit = rcfg.resolve_bwd_mode() == "segreduce"
 
     with torch.no_grad():
-        bins = bin_phase_slots(p0, alive0, kf_quats, kf_transl,
-                               sorted(set(iter_slots)), cam, rcfg, mcfg,
-                               emit)
-        bin_stats = phase_bin_stats(list(bins.values()), dev)
+        with spans.fine("mapping.bin"):
+            bins = bin_phase_slots(p0, alive0, kf_quats, kf_transl,
+                                   sorted(set(iter_slots)), cam, rcfg, mcfg,
+                                   emit)
+            bin_stats = phase_bin_stats(list(bins.values()), dev)
         # none when a prebuilt pool is given (the pool path never consults
         # the grid)
         iso_grid = None
         if iso_pool is None and lcfg.calc_iso:
-            iso_grid, iso_pool = build_phase_iso(
-                p0, alive0, lcfg, generator, pool_q_idx,
-                pool=lcfg.iso_pool_size > 0)
+            with spans.fine("mapping.iso_pool"):
+                iso_grid, iso_pool = build_phase_iso(
+                    p0, alive0, lcfg, generator, pool_q_idx,
+                    pool=lcfg.iso_pool_size > 0)
 
         if n_sub:
             # the phase's keyframes in the compositor's tile layout, once;
@@ -335,8 +340,9 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
                     (kf_colors_u8[slot].to(torch.float32) / 255.0
                      ).permute(2, 0, 1), kf_depths[slot][None]]), cam)
                 for slot in set(iter_slots[:n_sub])}
-            valid_px_full = torch.as_tensor(tile_pixel_validity(cam),
-                                            device=dev)
+            with spans.span("sync.tile_validity"):
+                valid_px_full = torch.as_tensor(tile_pixel_validity(cam),
+                                                device=dev)
             if stripe_idx is None:
                 stripe_idx = draw_stripes(iter_slots[:n_sub], n_stripes,
                                           mcfg.tile_cycle, generator, dev)
@@ -375,24 +381,30 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
         m2d = (torch.zeros((st.capacity, 2), device=dev, requires_grad=True)
                if dens is not None else None)
         with torch.enable_grad():
-            out = (loss_sub if it < n_sub else loss_exact)(
-                leaves, m2d, st.alive, slot, it)
-            grads = torch.autograd.grad(
-                out.loss, tuple(leaves) + ((m2d,) if m2d is not None
-                                           else ()))
+            with spans.fine("mapping.forward"):
+                out = (loss_sub if it < n_sub else loss_exact)(
+                    leaves, m2d, st.alive, slot, it)
+            with spans.fine("mapping.backward"):
+                grads = torch.autograd.grad(
+                    out.loss, tuple(leaves) + ((m2d,) if m2d is not None
+                                               else ()))
         with torch.no_grad():
             if dens is not None:
-                st = accumulate_mean2d_gradient(st, out.radii, grads[-1])
-                st, opt, c = densify_step(
-                    st, opt, it, dens, generator=generator,
-                    split_noise=None if split_noise is None
-                    else split_noise[it])
-                dens_counts += c
+                with spans.fine("mapping.densify_step"):
+                    st = accumulate_mean2d_gradient(st, out.radii,
+                                                    grads[-1])
+                    st, opt, c = densify_step(
+                        st, opt, it, dens, generator=generator,
+                        split_noise=None if split_noise is None
+                        else split_noise[it])
+                    dens_counts += c
                 grads = grads[:-1]
-            st = merge_max_radius(st, out.radii)
-            st, opt = prune_and_reset(st, opt, it, pc)
-            new_params, opt = optim.step(st.params, grads, opt, lrs,
-                                         eps=mcfg.eps)
+            with spans.fine("mapping.prune"):
+                st = merge_max_radius(st, out.radii)
+                st, opt = prune_and_reset(st, opt, it, pc)
+            with spans.fine("mapping.adam"):
+                new_params, opt = optim.step(st.params, grads, opt, lrs,
+                                             eps=mcfg.eps)
             st = st._replace(params=new_params)
             logs.append(torch.stack([out.loss, out.im, out.depth, out.flat,
                                      out.iso, out.mean_density,

@@ -26,7 +26,6 @@ import csv
 import functools
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -39,6 +38,7 @@ from ..io import checkpoints as ckpt_io
 from ..ops import _cuda
 from ..ops.rasterize import RasterConfig
 from ..parallel import dist as pdist
+from ..utils import spans
 from ..utils.transforms import rotmat_to_quat
 from . import keyframes as KF
 from .config import inject_defaults
@@ -133,11 +133,12 @@ def primary_device(config) -> torch.device:
 def _to_chw_frame(color, depth, device):
     """Dataset (H,W,3) 0..255 + (H,W,1) -> [3,H,W] 0..1, [1,H,W] on
     `device`."""
-    im = torch.as_tensor(np.asarray(color, np.float32),
-                         device=device).permute(2, 0, 1) / 255.0
-    d = torch.as_tensor(np.asarray(depth, np.float32),
-                        device=device).permute(2, 0, 1)
-    return im.contiguous(), d.contiguous()
+    # a blocking copy from host memory waits for the card's queue
+    with spans.span("sync.upload"):
+        im = torch.as_tensor(np.asarray(color, np.float32), device=device)
+        d = torch.as_tensor(np.asarray(depth, np.float32), device=device)
+    im = im.permute(2, 0, 1) / 255.0
+    return im.contiguous(), d.permute(2, 0, 1).contiguous()
 
 
 def _loss_cfg_tracking(config) -> LossConfig:
@@ -264,6 +265,13 @@ class SLAM:
     """
 
     def __init__(self, config: dict, dataset=None):
+        # the spans of this object's work (utils/spans.py), current while
+        # it is constructed and while it runs
+        self.trace = spans.Tracer()
+        with spans.use(self.trace), self.trace.span("slam.init"):
+            self._setup(config, dataset)
+
+    def _setup(self, config: dict, dataset):
         self.config = inject_defaults(config)
         cfg = self.config
         self.device = primary_device(cfg)
@@ -377,9 +385,11 @@ class SLAM:
         self.stats = {"tracking_iter_time": [], "tracking_frame_time": [],
                       "mapping_iter_time": [], "mapping_frame_time": [],
                       "gn_accepted": []}
-        # what the run's adaptive sizing did: [(frame, old, new)] each
+        # what the run's adaptive sizing did: [(frame, old, new)] each;
+        # isect_truncated: [(frame, demand, capacity)] of the binnings whose
+        # intersections did not all fit
         self.events = {"max_per_tile": [], "isect_cap": [], "capacity": [],
-                       "compactions": []}
+                       "compactions": [], "isect_truncated": []}
         self._frame = 0
         # cross-phase iso-KNN pool (_phase_iso_pool) and its age in phases
         self._iso_pool = None
@@ -438,7 +448,8 @@ class SLAM:
     def _sync(self):
         """Wait for the device before the host clock is read."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with spans.span("sync.stage"):
+                torch.cuda.synchronize(self.device)
 
     def _to_chw_frame(self, color, depth):
         return _to_chw_frame(color, depth, self.device)
@@ -484,9 +495,11 @@ class SLAM:
     def _pose(self, time_idx):
         q = self.cam_rots[:, time_idx]
         q = q / np.linalg.norm(q)
-        return (torch.as_tensor(q, dtype=torch.float32, device=self.device),
-                torch.as_tensor(self.cam_trans[:, time_idx],
-                                dtype=torch.float32, device=self.device))
+        with spans.span("sync.pose_upload"):
+            return (torch.as_tensor(q, dtype=torch.float32,
+                                    device=self.device),
+                    torch.as_tensor(self.cam_trans[:, time_idx],
+                                    dtype=torch.float32, device=self.device))
 
     def _est_w2c(self, time_idx) -> np.ndarray:
         from ..eval.eval_helpers import est_w2c
@@ -524,18 +537,21 @@ class SLAM:
         return self._iso_pool
 
     def _compact(self):
-        self._map_changed()
-        self._invalidate_iso_pool()
-        self.state = G.compact(self.state)
+        with spans.span("compact"):
+            self._map_changed()
+            self._invalidate_iso_pool()
+            self.state = G.compact(self.state)
         self.events["compactions"].append(self._frame)
 
     def _ensure_capacity(self, needed_extra: int):
-        used = int(self.state.hwm)
+        with spans.span("sync.hwm"):
+            used = int(self.state.hwm)
         cap = self.state.capacity
         if used + needed_extra > cap:
             # compaction re-packs pruned rows and lowers hwm; prefer it
             # when it frees enough
-            n_alive = int(self.state.num_alive())
+            with spans.span("sync.num_alive"):
+                n_alive = int(self.state.num_alive())
             if n_alive < used and n_alive + needed_extra <= cap:
                 self._compact()
                 return
@@ -577,14 +593,17 @@ class SLAM:
             print(f"[isect-cap] WARNING: demand {observed_peak} exceeded "
                   f"capacity {cap}: intersections were truncated this "
                   f"phase (capacity grows now)")
+            self.events["isect_truncated"].append((self._frame,
+                                                   observed_peak, cap))
         if cap and observed_peak > 0.75 * cap:
             self._set_isect_cap(max(int(observed_peak * 1.5),
                                     cap + (1 << 18)))
 
     def _init_isect_cap(self):
         if self._adaptive_isect and self.rcfg.max_isect_cap == 0:
-            self._set_isect_cap(
-                int(int(self.state.hwm) * self.rcfg.isect_per_gaussian))
+            with spans.span("sync.hwm"):
+                used = int(self.state.hwm)
+            self._set_isect_cap(int(used * self.rcfg.isect_per_gaussian))
 
     # --------------------------------------------------------------- init
     def initialize_first_frame(self, color, depth):
@@ -681,8 +700,11 @@ class SLAM:
                 gt_w2c[:3, :3], dtype=torch.float32)).numpy()
             self.cam_trans[:, time_idx] = gt_w2c[:3, 3]
             return None
-        q0 = torch.as_tensor(self.cam_rots[:, time_idx], device=self.device)
-        t0 = torch.as_tensor(self.cam_trans[:, time_idx], device=self.device)
+        with spans.span("sync.pose_upload"):
+            q0 = torch.as_tensor(self.cam_rots[:, time_idx],
+                                 device=self.device)
+            t0 = torch.as_tensor(self.cam_trans[:, time_idx],
+                                 device=self.device)
         binning = (self._track_bins.get(self.state.params, self.state.alive,
                                         q0, t0)
                    if self._track_bins is not None else None)
@@ -703,14 +725,18 @@ class SLAM:
             pose = torch.cat([res.quat, res.trans]).contiguous()
             pdist.broadcast_(pose, self._world_mesh)
             res = res._replace(quat=pose[:4], trans=pose[4:])
-        self.cam_rots[:, time_idx] = res.quat.cpu().numpy()
-        self.cam_trans[:, time_idx] = res.trans.cpu().numpy()
+        with spans.span("sync.pose"):
+            self.cam_rots[:, time_idx] = res.quat.cpu().numpy()
+            self.cam_trans[:, time_idx] = res.trans.cpu().numpy()
         if binning is not None:
             # grow AFTER the frame so the just-used binning and the rcfg
             # it was built with stay consistent
-            self._note_isect_demand(int(binning.n_isect))
+            with spans.span("sync.isect_demand"):
+                demand = int(binning.n_isect)
+            self._note_isect_demand(demand)
         if self.tcfg.gn_iters > 0 and res.gn_accepted is not None:
-            self.stats["gn_accepted"].append(int(res.gn_accepted))
+            with spans.span("sync.gn_accepted"):
+                self.stats["gn_accepted"].append(int(res.gn_accepted))
         return res
 
     def _sharded_tracker(self, params, alive, q0, t0, im, depth, cam,
@@ -752,11 +778,13 @@ class SLAM:
             return None
         # keyframe selection
         k = cfg["mapping_window_size"] - 2
-        depth_np = depth[0].cpu().numpy()
-        selected = KF.keyframe_selection_overlap(
-            depth_np, self._est_w2c(time_idx), self.intrinsics,
-            self.kf.w2cs[:-1] if len(self.kf) else [], k, self.rng,
-            self.cam.width, self.cam.height)
+        with spans.fine("mapping.select"):
+            with spans.span("sync.kf_depth"):
+                depth_np = depth[0].cpu().numpy()
+            selected = KF.keyframe_selection_overlap(
+                depth_np, self._est_w2c(time_idx), self.intrinsics,
+                self.kf.w2cs[:-1] if len(self.kf) else [], k, self.rng,
+                self.cam.width, self.cam.height)
         slots = [int(s) for s in selected]
         if len(self.kf) > 0:
             slots.append(len(self.kf) - 1)      # always the last keyframe
@@ -777,10 +805,12 @@ class SLAM:
         rand = self.rng.randint(0, len(slots), size=num_iters)
         iter_slots = [slots[int(r)] for r in rand]
         self._map_changed()
+        with spans.fine("mapping.iso_pool"):
+            iso_pool = self._phase_iso_pool()
         self.state, log, bin_stats = map_frame(
             self.state, self.kf.colors, self.kf.depths, self.kf.quats,
             self.kf.trans, iter_slots, self.cam, self.rcfg, self.lcfg_map,
-            self.mcfg, generator=self.gen, iso_pool=self._phase_iso_pool())
+            self.mcfg, generator=self.gen, iso_pool=iso_pool)
         self._broadcast_state()
         self._check_tile_cap(bin_stats)
         if bin_stats.shape[0] > 3:
@@ -809,8 +839,9 @@ class SLAM:
             else:
                 pick = self.rng.randint(0, len(slots), size=B)
             step_slots[s] = [slots[int(i)] for i in pick]
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.gen,
-                                 device=self.device))
+        with spans.span("sync.phase_seed"):
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.gen,
+                                     device=self.device))
         self._map_changed()
         self.state, log, bin_stats = self._mv_phase(
             self.state, self.kf.colors, self.kf.depths, self.kf.quats,
@@ -824,7 +855,8 @@ class SLAM:
         last (dropping them is by design) but dropped true candidates are
         a real deviation: warn, and by default escalate the cap
         (config raster.adaptive_max_per_tile)."""
-        stats = np.asarray(torch.as_tensor(bin_stats).cpu())
+        with spans.span("sync.bin_stats"):
+            stats = np.asarray(torch.as_tensor(bin_stats).cpu())
         dropped, total = int(stats[0]), int(stats[1])
         if stats.shape[0] > 2:
             self._note_isect_demand(int(stats[2]))
@@ -862,13 +894,25 @@ class SLAM:
             acts.append(ProfilerActivity.CUDA)
         os.makedirs(trace_dir, exist_ok=True)
         with profile(activities=acts) as prof:
-            out = self._run(end_at)
+            out = self._run(end_at, own_profiler=True)
         path = os.path.join(trace_dir, "trace.json")
         prof.export_chrome_trace(path)
         print(f"[profile] trace written to {path}")
         return out
 
-    def _run(self, end_at: int | None = None) -> dict:
+    def _run(self, end_at: int | None = None,
+             own_profiler: bool = False) -> dict:
+        """The run under its tracer: fine spans are on when a profiler
+        records it (`own_profiler`: run() started that one). The run's
+        summary goes to spans.FINISHED."""
+        tr = self.trace
+        tr.start_run(own_profiler)
+        with spans.use(tr), tr.span("slam.run"):
+            out = self._run_frames(end_at)
+        spans.FINISHED.append(tr.summary())
+        return out
+
+    def _run_frames(self, end_at: int | None) -> dict:
         cfg = self.config
         start_frame = self.try_resume()
         metrics = (MetricsCSV(self.output_dir, start_frame) if self.is_main
@@ -907,14 +951,46 @@ class SLAM:
 
     def _frame_loop(self, cfg, metrics, start_frame, end_frame,
                     main_ds, track_ds, dens_ds) -> dict:
+        tr = self.trace
         for time_idx in range(start_frame, end_frame + 1):
-            self._frame = time_idx
-            color, depth, _, gt_pose = main_ds[time_idx]
-            gt_w2c = np.linalg.inv(np.asarray(gt_pose, np.float64))
-            self.gt_w2c_all.append(gt_w2c)
+            self._frame = tr.frame = time_idx
+            with tr.span("frame"):
+                self._one_frame(cfg, metrics, time_idx, end_frame, main_ds,
+                                track_ds, dens_ds)
+
+        with tr.span("finish"):
+            if self._world_mesh is not None:
+                d = self.replica_max_diff()
+                self.stats["replica_max_abs_diff"] = d
+                if self.is_main:
+                    print(f"[parallel] replicas: max |x - rank 0's x| over "
+                          f"the map, the Adam moments, the poses and the "
+                          f"keyframe poses of {self._world_mesh.world} ranks "
+                          f"= {d!r}")
+            if self.online_eval is not None:
+                try:
+                    self.online_eval.finalize()
+                except Exception as e:
+                    print(f"[online eval] finalize failed: {e}")
+            self.write_runtime_stats(end_frame)
+            if (cfg["save_checkpoints"]
+                    and end_frame % cfg["checkpoint_interval"] != 0):
+                self.save_checkpoint(end_frame)
+        return self.stats
+
+    def _one_frame(self, cfg, metrics, time_idx, end_frame, main_ds,
+                   track_ds, dens_ds):
+        """One frame of the loop, its stages each in a span of the frame's
+        (the stage times of `stats` are those spans' durations)."""
+        tr = self.trace
+        color, depth, _, gt_pose = main_ds[time_idx]
+        gt_w2c = np.linalg.inv(np.asarray(gt_pose, np.float64))
+        self.gt_w2c_all.append(gt_w2c)
+        with tr.span("upload"):
             im, d = self._to_chw_frame(color, depth)
 
-            if time_idx == 0 and self.state is None:
+        if time_idx == 0 and self.state is None:
+            with tr.span("init"):
                 if dens_ds is not None:
                     dcol, ddep, _, _ = dens_ds[0]
                     self.initialize_first_frame_from(
@@ -922,79 +998,86 @@ class SLAM:
                 else:
                     self.initialize_first_frame(color, depth)
 
-            # tracking
-            if track_ds is not None and time_idx > 0:
-                tcol, tdep, _, _ = track_ds[time_idx]
+        # tracking
+        if track_ds is not None and time_idx > 0:
+            tcol, tdep, _, _ = track_ds[time_idx]
+            with tr.span("upload"):
                 tim, td = self._to_chw_frame(tcol, tdep)
-            else:
-                tim, td = im, d
-            self._sync()
-            t0 = time.time()
+        else:
+            tim, td = im, d
+        self._sync()
+        with tr.span("tracking") as stage:
             res = self.track(time_idx, tim, td)
             self._sync()
-            t1 = time.time()
-            if res is not None:
-                iters = int(res.iters_run)
+        if res is not None:
+            iters = int(res.iters_run)
+            with spans.span("sync.loss_log"):
                 log = res.loss_log.cpu().numpy()
-                metrics.append_block(time_idx, "tracking", log)
-                self.logger.log_block(time_idx, "tracking", log)
-                mask_frac = log[max(iters - 1, 0), 6]
-                if mask_frac < 0.01:
-                    print(f"[tracking] WARNING frame {time_idx}: loss mask "
-                          f"covers {mask_frac:.2%} of pixels: silhouette "
-                          f"never exceeds sil_thres="
-                          f"{self.lcfg_track.sil_thres}; pose is frozen at "
-                          f"its initialization. Lower tracking.sil_thres "
-                          f"or reduce the iso weight.")
-                self.stats["tracking_iter_time"].append(
-                    (t1 - t0) / max(iters, 1))
-                self.stats.setdefault("tracking_iters_run", []).append(iters)
-                self.stats.setdefault("tracking_mask_frac", []).append(
-                    float(mask_frac))
-            self.stats["tracking_frame_time"].append(t1 - t0)
+            metrics.append_block(time_idx, "tracking", log)
+            self.logger.log_block(time_idx, "tracking", log)
+            mask_frac = log[max(iters - 1, 0), 6]
+            if mask_frac < 0.01:
+                print(f"[tracking] WARNING frame {time_idx}: loss mask "
+                      f"covers {mask_frac:.2%} of pixels: silhouette "
+                      f"never exceeds sil_thres="
+                      f"{self.lcfg_track.sil_thres}; pose is frozen at "
+                      f"its initialization. Lower tracking.sil_thres "
+                      f"or reduce the iso weight.")
+            self.stats["tracking_iter_time"].append(
+                stage.seconds / max(iters, 1))
+            self.stats.setdefault("tracking_iters_run", []).append(iters)
+            self.stats.setdefault("tracking_mask_frac", []).append(
+                float(mask_frac))
+        self.stats["tracking_frame_time"].append(stage.seconds)
 
-            # densification + mapping
-            if time_idx == 0 or (time_idx + 1) % cfg["map_every"] == 0:
-                if cfg["mapping"]["add_new_gaussians"] and time_idx > 0:
+        # densification + mapping
+        if time_idx == 0 or (time_idx + 1) % cfg["map_every"] == 0:
+            if cfg["mapping"]["add_new_gaussians"] and time_idx > 0:
+                # ends at the wait before mapping, as tracking does
+                with tr.span("densify"):
                     if dens_ds is not None:
                         dcol, ddep, _, _ = dens_ds[time_idx]
                         dim, dd = self._to_chw_frame(dcol, ddep)
                     else:
                         dim, dd = im, d
                     self.densify(time_idx, dim, dd)
+                    self._sync()
+            else:
                 self._sync()
-                t2 = time.time()
+            with tr.span("mapping") as stage:
                 mlog = self.map(time_idx, im, d)
                 self._sync()
-                t3 = time.time()
-                if mlog is not None:
+            if mlog is not None:
+                with spans.span("sync.loss_log"):
                     mlog = mlog.cpu().numpy()
-                    metrics.append_block(time_idx, "mapping", mlog)
-                    self.logger.log_block(time_idx, "mapping", mlog)
-                    self.stats["mapping_iter_time"].append(
-                        (t3 - t2) / max(cfg["mapping"]["num_iters"], 1))
-                self.stats["mapping_frame_time"].append(t3 - t2)
-                # periodic compaction of pruned rows
-                if (time_idx + 1) % self._compact_every == 0:
-                    self._compact()
+                metrics.append_block(time_idx, "mapping", mlog)
+                self.logger.log_block(time_idx, "mapping", mlog)
+                self.stats["mapping_iter_time"].append(
+                    stage.seconds / max(cfg["mapping"]["num_iters"], 1))
+            self.stats["mapping_frame_time"].append(stage.seconds)
+            # periodic compaction of pruned rows
+            if (time_idx + 1) % self._compact_every == 0:
+                self._compact()
 
-            # keyframe append
-            if (((time_idx == 0)
-                 or ((time_idx + 1) % cfg["keyframe_every"] == 0)
-                 or (time_idx == self.num_frames - 2))
-                    and (not np.isinf(gt_w2c).any())
-                    and (not np.isnan(gt_w2c).any())
-                    and len(self.kf) < self.kf.max_keyframes):
+        # keyframe append
+        if (((time_idx == 0)
+             or ((time_idx + 1) % cfg["keyframe_every"] == 0)
+             or (time_idx == self.num_frames - 2))
+                and (not np.isinf(gt_w2c).any())
+                and (not np.isnan(gt_w2c).any())
+                and len(self.kf) < self.kf.max_keyframes):
+            with tr.span("keyframe"):
                 q, t = self._pose(time_idx)
                 self.kf.add_keyframe(time_idx, im, d, q, t,
                                      self._est_w2c(time_idx))
                 self.keyframe_time_indices.append(time_idx)
 
-            # global progress report; a failure triggers an emergency
-            # checkpoint
-            if self.is_main and (
-                    (time_idx + 1) % cfg["report_global_progress_every"] == 0
-                    or time_idx == end_frame):
+        # global progress report; a failure triggers an emergency
+        # checkpoint
+        if self.is_main and (
+                (time_idx + 1) % cfg["report_global_progress_every"] == 0
+                or time_idx == end_frame):
+            with tr.span("progress"):
                 try:
                     self.report_progress(time_idx, im, d)
                 except Exception as e:
@@ -1005,28 +1088,10 @@ class SLAM:
                     except Exception:
                         pass
 
-            # checkpoint
-            if (cfg["save_checkpoints"]
-                    and time_idx % cfg["checkpoint_interval"] == 0):
-                self.save_checkpoint(time_idx)
-
-        if self._world_mesh is not None:
-            d = self.replica_max_diff()
-            self.stats["replica_max_abs_diff"] = d
-            if self.is_main:
-                print(f"[parallel] replicas: max |x - rank 0's x| over the "
-                      f"map, the Adam moments, the poses and the keyframe "
-                      f"poses of {self._world_mesh.world} ranks = {d!r}")
-        if self.online_eval is not None:
-            try:
-                self.online_eval.finalize()
-            except Exception as e:
-                print(f"[online eval] finalize failed: {e}")
-        self.write_runtime_stats(end_frame)
+        # checkpoint
         if (cfg["save_checkpoints"]
-                and end_frame % cfg["checkpoint_interval"] != 0):
-            self.save_checkpoint(end_frame)
-        return self.stats
+                and time_idx % cfg["checkpoint_interval"] == 0):
+            self.save_checkpoint(time_idx)
 
     def report_progress(self, time_idx: int, im, d):
         """Online evaluation of the current frame at its estimated pose:
@@ -1039,7 +1104,8 @@ class SLAM:
                 logger=self.logger,
                 save_qual=self.config.get("eval_online_save_qual", True))
         m = self.online_eval.eval_frame(self, time_idx, im, d)
-        n_alive = int(self.state.num_alive())
+        with spans.span("sync.num_alive"):
+            n_alive = int(self.state.num_alive())
         print(f"[progress] frame {time_idx}: PSNR {m['online/psnr']:.2f} "
               f"dB, MS-SSIM {m['online/ms_ssim']:.3f}, depth L1 "
               f"{m['online/depth_l1']*100:.2f} cm, ATE "
@@ -1051,31 +1117,33 @@ class SLAM:
         """Alive rows as the reference's params dict (compacted), and their
         creation timesteps."""
         st = G.compact(self.state)
-        n = int(st.hwm)
         p = st.params
+        with spans.span("sync.checkpoint"):
+            n = int(st.hwm)
 
-        def host(a):
-            return a[:n].cpu().numpy()
+            def host(a):
+                return a[:n].cpu().numpy()
 
-        return {
-            "means3D": host(p.means3d),
-            "rgb_colors": host(p.rgb_colors),
-            "unnorm_rotations": host(p.unnorm_rotations),
-            "logit_opacities": host(p.logit_opacities),
-            "log_scales": host(p.log_scales),
-        }, host(st.timestep)
+            return {
+                "means3D": host(p.means3d),
+                "rgb_colors": host(p.rgb_colors),
+                "unnorm_rotations": host(p.unnorm_rotations),
+                "logit_opacities": host(p.logit_opacities),
+                "log_scales": host(p.log_scales),
+            }, host(st.timestep)
 
     def save_checkpoint(self, time_idx: int):
         if not self.is_main:
             return
-        params, timestep = self.gauss_params_numpy()
-        dc = self.config["data"]
-        ckpt_io.save_checkpoint(
-            self.output_dir, time_idx, params, self.cam_rots[None],
-            self.cam_trans[None], timestep, self.intrinsics,
-            self.first_frame_w2c, dc["desired_image_width"],
-            dc["desired_image_height"], self.gt_w2c_all,
-            self.keyframe_time_indices)
+        with spans.span("checkpoint"):
+            params, timestep = self.gauss_params_numpy()
+            dc = self.config["data"]
+            ckpt_io.save_checkpoint(
+                self.output_dir, time_idx, params, self.cam_rots[None],
+                self.cam_trans[None], timestep, self.intrinsics,
+                self.first_frame_w2c, dc["desired_image_width"],
+                dc["desired_image_height"], self.gt_w2c_all,
+                self.keyframe_time_indices)
 
     def write_runtime_stats(self, final_frame: int):
         # each rank's kernel launch counts so far (the CUDA wrappers'
@@ -1123,6 +1191,16 @@ class SLAM:
             d["Replica Max Abs Diff"] = s.get("replica_max_abs_diff")
         if any(launches):
             d["Kernel Launches (per rank)"] = launches
+        d["Events"] = {k: len(v) for k, v in self.events.items()}
+        # the spans closed so far (utils/spans.py): seconds and count by
+        # name, and the host's waits on the card per frame
+        totals = self.trace.totals()
+        d["Spans"] = {k: {"s": s_n[0], "n": s_n[1]}
+                      for k, s_n in sorted(totals.items())}
+        n_frames = totals.get("frame", [0.0, 0])[1]
+        d["Host Syncs per Frame"] = (
+            sum(n for k, (_, n) in totals.items()
+                if k.startswith(spans.SYNC_PREFIX)) / max(n_frames, 1))
         with open(os.path.join(self.output_dir, "runtime_stats.json"),
                   "w") as f:
             json.dump(d, f, indent=2)

@@ -9,6 +9,7 @@ from ..core.camera import Camera
 from ..core.gaussians import (GaussianParams, MapState, append_rows,
                               empty_state, new_gaussian_rows)
 from ..ops.rasterize import RasterConfig, render_rgbd_sil
+from ..utils import spans
 from ..utils.transforms import normalize, pose_to_w2c, transform_to_frame
 from .losses import _median
 
@@ -71,7 +72,9 @@ def add_new_gaussians(state: MapState, gt_im, gt_depth, cam_quat, cam_trans,
     valid = ((non_presence_sil | non_presence_depth) & (gtd > 0)).reshape(-1)
 
     w2c = pose_to_w2c(normalize(cam_quat), cam_trans)
-    c2w = torch.linalg.inv(w2c)
+    # the inverse reads back its status to raise on a singular matrix
+    with spans.span("sync.pose_inverse"):
+        c2w = torch.linalg.inv(w2c)
     pts, cols, m3sd = backproject(gt_im, gt_depth, cam, c2w)
     rows = new_gaussian_rows(
         pts, cols, torch.clamp(m3sd, min=1e-12),

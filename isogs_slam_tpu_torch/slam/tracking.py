@@ -26,6 +26,7 @@ from ..core.gaussians import GaussianParams
 from ..ops.rasterize import (NEAR_CULL_Z, RasterConfig, bin_gaussians,
                              gather_raw_table, image_to_tiles,
                              project_gaussians, tile_pixel_validity)
+from ..utils import spans
 from ..utils.transforms import (normalize, pose_to_w2c, transform_points,
                                 transform_to_frame)
 from .icp import GNConfig, gn_depth_polish
@@ -100,6 +101,7 @@ class TrackResult(NamedTuple):
     gn_accepted: torch.Tensor | None = None
 
 
+@spans.fine_call("tracking.bin")
 @torch.no_grad()
 def bin_at_pose(params: GaussianParams, alive, quat, trans, margin_px: float,
                 cam: Camera, rcfg: RasterConfig):
@@ -180,8 +182,10 @@ class BinningReuse:
     def get(self, params: GaussianParams, alive, quat, trans):
         if self._binning is not None:
             bq, bt = self._pose
-            drift = float(max_pixel_drift(params.means3d, alive, bq, bt,
-                                          quat, trans, self.cam))
+            drift = max_pixel_drift(params.means3d, alive, bq, bt, quat,
+                                    trans, self.cam)
+            with spans.span("sync.bin_drift"):
+                drift = float(drift)
             if drift <= self.margin_px - self.slack_px:
                 self.n_reuses += 1
                 return self._binning
@@ -233,7 +237,8 @@ def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig,
     best = pose
     opt = optim.init(pose)
     dev = pose[0].device
-    min_loss = torch.tensor(1e20, dtype=torch.float32, device=dev)
+    with spans.span("sync.loop_init"):
+        min_loss = torch.tensor(1e20, dtype=torch.float32, device=dev)
     log = torch.full((max_iters, N_LOG), float("nan"), device=dev)
     best_it = torch.zeros((), dtype=torch.int64, device=dev)
     ema = tuple(torch.zeros_like(p) for p in pose)
@@ -246,11 +251,13 @@ def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig,
             (loss, out), grads = value_and_grad_fn(leaves)
         else:
             with torch.enable_grad():
-                loss, out = loss_fn(leaves)
-                grads = torch.autograd.grad(loss, leaves)
+                with spans.fine("tracking.forward"):
+                    loss, out = loss_fn(leaves)
+                with spans.fine("tracking.backward"):
+                    grads = torch.autograd.grad(loss, leaves)
         decay = tcfg.lr_decay ** it
         lrs = (tcfg.lr_quat * decay, tcfg.lr_trans * decay)
-        with torch.no_grad():
+        with torch.no_grad(), spans.fine("tracking.step"):
             new_pose, opt = optim.step(tuple(p.detach() for p in leaves),
                                        grads, opt, lrs, eps=tcfg.eps)
             metric = _cand_metric(loss.detach(), out, tcfg)
@@ -269,19 +276,20 @@ def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig,
                 ema_w = rho * ema_w + (1 - rho)
         pose = new_pose
         it += 1
-        stop = False
-        if it >= cur_max:
-            if (tcfg.use_depth_loss_thres and not doubled
-                    and not bool(out.depth < tcfg.depth_loss_thres)):
-                cur_max, doubled = 2 * tcfg.num_iters, True
-            else:
-                stop = True
+        stop = it >= cur_max
+        if stop and tcfg.use_depth_loss_thres and not doubled:
+            with spans.span("sync.depth_thres"):
+                met = bool(out.depth < tcfg.depth_loss_thres)
+            if not met:
+                cur_max, doubled, stop = 2 * tcfg.num_iters, True, False
         # it - 1 is the iteration just evaluated; a stall is `patience`
         # evaluated iterations in a row without a new best (the one read
         # of the device per iteration that this knob costs)
-        if (tcfg.early_stop_patience > 0
-                and it - 1 - int(best_it) >= tcfg.early_stop_patience):
-            stop = True
+        if tcfg.early_stop_patience > 0:
+            with spans.span("sync.early_stop"):
+                stalled = it - 1 - int(best_it)
+            if stalled >= tcfg.early_stop_patience:
+                stop = True
         if stop:
             return PoseLoopState(best_pose=best, it=it, log=log, ema=ema,
                                  ema_w=ema_w, best_it=best_it)
@@ -346,20 +354,23 @@ def track_frame(params: GaussianParams, alive, init_quat, init_trans, gt_im,
         # all T tiles are gathered only when it will run or no subset is
         # taken
         if tcfg.tile_subsample <= 1 or tcfg.gn_iters > 0:
-            raw = gather_raw_table(params, binning.tile_gauss)
+            with spans.fine("tracking.gather"):
+                raw = gather_raw_table(params, binning.tile_gauss)
 
         if tcfg.tile_subsample > 1:
             # strided tile subset, fixed for the frame
             T_tiles = cam.num_tiles
             Ts = max(T_tiles // tcfg.tile_subsample, 1)
             sel = torch.arange(Ts, device=alive.device) * tcfg.tile_subsample
-            raw_sub = (raw[sel] if raw is not None else
-                       gather_raw_table(params, binning.tile_gauss[sel]))
+            with spans.fine("tracking.gather"):
+                raw_sub = (raw[sel] if raw is not None else
+                           gather_raw_table(params, binning.tile_gauss[sel]))
             counts_sub = counts[sel]
             gt_tiles = image_to_tiles(torch.cat([gt_im, gt_depth], dim=0),
                                       cam)[sel]
-            valid_px = torch.as_tensor(tile_pixel_validity(cam),
-                                       device=alive.device)[sel]
+            with spans.span("sync.tile_validity"):
+                valid_px = torch.as_tensor(tile_pixel_validity(cam),
+                                           device=alive.device)[sel]
             scale = float(T_tiles) / float(Ts)
 
             def loss_fn(pose):
@@ -376,7 +387,9 @@ def track_frame(params: GaussianParams, alive, init_quat, init_trans, gt_im,
     final = adam_pose_loop(loss_fn, (init_quat, init_trans), tcfg)
     best_q, best_t = (final.polyak_pose() if tcfg.polyak_rho > 0
                       else final.best_pose)
-    gn_accepted = torch.tensor(-1, dtype=torch.int32, device=alive.device)
+    with spans.span("sync.gn_flag"):
+        gn_accepted = torch.tensor(-1, dtype=torch.int32,
+                                   device=alive.device)
 
     with torch.no_grad():
         if tcfg.fan_rounds > 0:

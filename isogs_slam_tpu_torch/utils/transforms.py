@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from . import spans
+
 
 def normalize(q: torch.Tensor, dim: int = -1, eps: float = 1e-12
               ) -> torch.Tensor:
@@ -71,8 +73,10 @@ def pose_to_w2c(cam_quat: torch.Tensor, cam_trans: torch.Tensor
     """(quat [4], trans [3]) -> 4x4 world-to-camera matrix."""
     R = quat_to_rotmat(cam_quat)
     top = torch.cat([R, cam_trans.reshape(3, 1)], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype,
-                          device=top.device)
+    # a blocking copy from the host: it waits for the card's queue
+    with spans.span("sync.pose_matrix"):
+        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype,
+                              device=top.device)
     return torch.cat([top, bottom], dim=0)
 
 

@@ -2,6 +2,7 @@
 refusal of knobs that are not ported, and the whole pipeline against the
 JAX package on the same injected frames."""
 import csv
+import json
 import os
 
 import jax.numpy as jnp
@@ -268,6 +269,82 @@ def test_profile_trace_dir_writes_a_trace(tmp_path):
     stats = slam.run(end_at=1)
     assert len(stats["tracking_frame_time"]) == 2
     assert (trace_dir / "trace.json").stat().st_size > 10_000
+    # the run's own profiler shows the spans as named ranges
+    with open(trace_dir / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"] for e in events
+              if e.get("cat") == "user_annotation"}
+    assert {"mapping.forward", "mapping.backward", "mapping.adam",
+            "tracking", "frame", "slam.run"} <= ranges
+
+
+def _span_durations(table, name):
+    return [(e - s) * 1e-9 for n, s, e in zip(table["name"],
+                                              table["start_ns"],
+                                              table["end_ns"]) if n == name]
+
+
+def test_stage_times_are_the_run_spans(tmp_path):
+    """SLAM.stats' stage times are the durations of the run's tracking and
+    mapping spans; one frame span a frame, a densify span in each frame
+    past the first (map_every 1); no fine span without a profiler;
+    runtime_stats.json holds the span totals, the host waits a frame and
+    the events' counts; the run's summary lands in spans.FINISHED."""
+    from isogs_slam_tpu_torch.utils import spans
+    cfg = _config(tmp_path, "spans", map_every=1)
+    cfg["mapping"]["num_iters"] = 2
+    cfg["tracking"]["num_iters"] = 2
+    slam = P.SLAM(cfg, dataset=_frames())
+    stats = slam.run(end_at=1)
+    t = slam.trace.table()
+    assert stats["tracking_frame_time"] == _span_durations(t, "tracking")
+    assert stats["mapping_frame_time"] == _span_durations(t, "mapping")
+    assert len(stats["mapping_frame_time"]) == 2
+    frames = [i for i, n in enumerate(t["name"]) if n == "frame"]
+    assert [t["frame"][i] for i in frames] == [0, 1]
+    dens = [i for i, n in enumerate(t["name"]) if n == "densify"]
+    assert [t["frame"][i] for i in dens] == [1]
+    assert t["name"][t["parent"][dens[0]]] == "frame"
+    assert "mapping.forward" not in t["name"]
+    assert t["name"][0] == "slam.init" and "slam.run" in t["name"]
+    with open(os.path.join(slam.output_dir, "runtime_stats.json")) as f:
+        rs = json.load(f)
+    assert rs["Spans"]["tracking"]["n"] == 2
+    assert rs["Spans"]["frame"]["s"] > 0
+    assert rs["Events"] == {k: len(v) for k, v in slam.events.items()}
+    assert "isect_truncated" in rs["Events"]
+    n_sync = sum(n.startswith("sync.") for n in t["name"])
+    assert rs["Host Syncs per Frame"] >= 1 and n_sync > 0
+    last = spans.FINISHED[-1]
+    assert last["frames"] == 2 and not last["fine"]
+    assert last["totals"]["densify"][1] == 1
+
+
+def test_fine_spans_under_an_outer_profiler(tmp_path):
+    """A run that starts under a torch profiler it did not start records
+    its per-iteration spans (one mapping.forward / .backward / .adam a
+    mapping iteration, one tracking.forward / .backward / .step a tracking
+    iteration), keeps the profiler for the join, and puts no named range
+    into that profile."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = _config(tmp_path, "outer", map_every=1)
+    cfg["mapping"]["num_iters"] = 3
+    cfg["tracking"]["num_iters"] = 2
+    slam = P.SLAM(cfg, dataset=_frames())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        slam.run(end_at=1)
+    names = slam.trace.table()["name"]
+    for n in ("mapping.forward", "mapping.backward", "mapping.adam",
+              "mapping.prune"):
+        assert names.count(n) == 2 * 3, n
+    for n in ("tracking.forward", "tracking.backward", "tracking.step"):
+        assert names.count(n) == 2, n
+    assert names.count("mapping.bin") == 2
+    assert {"render.project", "render.composite", "loss.photometric",
+            "loss.flat", "loss.iso", "render.composite_bwd"} <= set(names)
+    assert slam.trace.fine and slam.trace.profiler is prof.profiler
+    annotated = {e.name for e in prof.events() if e.name in set(names)}
+    assert not annotated
 
 
 # ------------------------------------------- the slice, against JAX
