@@ -40,6 +40,8 @@ import traceback  # noqa: E402
 
 import numpy as np  # noqa: E402
 
+from . import host as H  # noqa: E402
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "isogs_slam_tpu")
@@ -192,10 +194,42 @@ def judge_job(job, seqs, spec, cfg, device, check):
     return nums, J.verdict(nums, check["limits"])
 
 
+def host_summary(first, start, end, recs, card0, card1, frames, window_s,
+                 setup_s, threads) -> dict:
+    """The run's host record: where the process could run and did, the
+    card's node, and the jobs' host times (medians over the window's
+    jobs) beside the window's frames per second."""
+    node = H.card_node((card0 or {}).get("pci.bus_id"))
+    out = {"fps": frames / window_s if window_s else None,
+           "setup_s": setup_s, "cpu_count": first["cpu_count"],
+           "affinity": H.cpulist_text(first["affinity"]),
+           "torch_threads": threads, "card_node": node,
+           "node_cpus": H.cpulist_text(H.node_cpus(node)),
+           "card_setup": card0, "card_end": card1,
+           "loadavg": end["loadavg"], "mhz": end["mhz"],
+           "read_ms": max([s["read_ms"] for s in (first, start)]
+                          + [r["read_ms"] for r in recs]),
+           "setup": H.between(first, start), "window": H.between(start, end)}
+    for key in ("cpu_s", "run_s", "wait_s", "nvcsw"):
+        vals = [r["main"][key] for r in recs if "main" in r]
+        if vals:
+            out["main_" + key + "_job"] = float(np.median(vals))
+    if recs:
+        out["others_cpu_s_job"] = float(np.median(
+            [r["others"]["cpu_s"] for r in recs]))
+    out["main_cpus"] = sorted({c for r in recs for c in
+                               r.get("main", {}).get("cpus", [])})
+    return out
+
+
 def run(name: str, seed: int, seconds: float, trace: bool, device,
-        shrink: dict | None = None) -> dict:
+        shrink: dict | None = None, host0: dict | None = None,
+        card: H.CardQuery | None = None) -> dict:
     """One run of cell `name`; returns the result object. `shrink` (tests
-    only) replaces camera and traffic entries to run at a toy size."""
+    only) replaces camera and traffic entries to run at a toy size.
+    `host0`: the host's snapshot taken before torch was imported; `card`:
+    nvidia-smi's reading asked then."""
+    first = host0 or H.snapshot()
     import torch
     from isogs_slam_tpu_torch.slam.config import inject_defaults
     from .jobs import FrameSource, remove, run_job
@@ -226,6 +260,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
     remove(os.path.join(base, "warmup"))
     gc.collect()
 
+    host_recs, host_snaps = [], []   # per job; window start, then each end
+
     def one_job(j):
         job = {"seq": j % n_seq,
                "slam_seed": slam_seed(seqs[j % n_seq][0])}
@@ -237,14 +273,21 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
             traceback.print_exc()
             job["error"] = True
         gc.collect()
+        snap = H.snapshot()
+        rec = H.between(host_snaps[-1], snap)
+        host_snaps.append(snap)
+        host_recs.append(rec)
         if "wall_s" in job:
             print(f"benchmark: job {j} start {seqs[j % n_seq][0]}: "
                   f"{job['wall_s']:.3f} s", file=sys.stderr)
+        print(H.line(f"job {j}", rec), file=sys.stderr)
         return job
 
+    card0 = card.result() if card else None
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    host_snaps.append(H.snapshot())
     t0 = time.time()
     setup_s = t0 - T_PROCESS
     jobs = []
@@ -257,6 +300,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
     sync()
     window_s = time.time() - t0
     peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
+    window_recs, window_end = list(host_recs), host_snaps[-1]
+    card1 = H.CardQuery().result() if card else None
     ok_jobs = [jb for jb in jobs if not jb.get("error")]
     frames = sum(jb["frames"] for jb in ok_jobs)
     ctx = {"frames": frames, "window_s": window_s, "trace": None,
@@ -334,6 +379,9 @@ def run(name: str, seed: int, seconds: float, trace: bool, device,
     out["checks"] = {k: {"value": float(nums.get(k, float("nan"))),
                          "limit": float(v)}
                      for k, v in c["check"]["limits"].items()}
+    print(H.line("run", host_summary(
+        first, host_snaps[0], window_end, window_recs, card0, card1, frames,
+        window_s, setup_s, torch.get_num_threads())), file=sys.stderr)
     print(f"benchmark: {wl['name']} seed {seed}: {len(jobs)} jobs, "
           f"{frames} frames in {window_s:.3f} s, setup {setup_s:.3f} s, "
           f"{time.time() - T_PROCESS:.3f} s in all", file=sys.stderr)
@@ -347,21 +395,25 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     a = ap.parse_args(argv)
+    host0 = H.snapshot()
     chips = int(cell_spec(a.workload)["workload"]["chips"])
     # a library the port uses must not bring JAX in by itself
     os.environ.setdefault("USE_FLAX", "0")
-    import torch
-    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if have < chips:
-        print(f"benchmark: needs {chips} CUDA device(s), found {have}",
-              file=sys.stderr)
-        return 3
+    card = H.CardQuery()         # answers while torch is imported
     try:
+        import torch
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < chips:
+            print(f"benchmark: needs {chips} CUDA device(s), found {have}",
+                  file=sys.stderr)
+            return 3
         out = run(a.workload, a.seed, a.seconds, bool(a.trace),
-                  torch.device("cuda"))
+                  torch.device("cuda"), host0=host0, card=card)
     except RuntimeError as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 4
+    finally:
+        card.close()
     for k, v in out["checks"].items():
         print(f"check {k}: {v['value']!r} (limit {v['limit']!r})",
               file=sys.stderr)
