@@ -225,11 +225,26 @@ PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 SOURCES = {"composite_fwd": "isogs_slam_tpu_torch/csrc/composite.cu",
            "composite_bwd": "isogs_slam_tpu_torch/csrc/composite.cu",
-           "segreduce": "isogs_slam_tpu_torch/csrc/segreduce.cu"}
+           "segreduce": "isogs_slam_tpu_torch/csrc/segreduce.cu",
+           "project_fwd": "isogs_slam_tpu_torch/csrc/project.cu",
+           "project_bwd": "isogs_slam_tpu_torch/csrc/project.cu"}
 REPLACES = {
     "composite_fwd": "isogs_slam_tpu/ops/pallas_composite.py:498",
     "composite_bwd": "isogs_slam_tpu/ops/pallas_composite.py:539",
-    "segreduce": "isogs_slam_tpu/ops/segreduce.py:88"}
+    "segreduce": "isogs_slam_tpu/ops/segreduce.py:88",
+    # plain XLA in the JAX package (no Pallas kernel): _ewa_core and
+    # project_gaussians, and the render's table
+    "project_fwd": "isogs_slam_tpu/ops/rasterize.py:155",
+    "project_bwd": "isogs_slam_tpu/ops/rasterize.py:155"}
+# bytes a row kernel P moves in the mapping render's call (rgb + z, masked
+# opacity, a means2d offset): forward reads means 12, quats 16, scales 12,
+# logit 4, rgb 12, alive 1, offset 8 and writes the table 40, radius 4,
+# valid 1; backward reads the inputs 44, valid 1 and d table 40 and writes
+# d means 12, d quats 16, d scales 12, d logit 4, d rgb 12, d offset 8.
+# Operations a row, counted from csrc/project.cu: ~130 forward, ~330
+# backward (it recomputes the forward)
+PROJECT_FWD_BYTES, PROJECT_BWD_BYTES = 110, 149
+PROJECT_FWD_OPS, PROJECT_BWD_OPS = 130, 330
 
 
 def phase(name, t0):
@@ -466,6 +481,94 @@ EXTRA_CAMERAS = (
     ("iphone", 960, 720, ALL_K),
     ("densify", 600, 340, ((768, "bf16"), (1024, "bf16"))),
 )
+
+
+def project_kernels(ctx, frames, cam, dev, results):
+    """Kernels P fwd and P bwd at N = capacity, on frame 0's map at
+    keyframe 0's pose in the mapping render's call (masked opacity, rgb +
+    the depth column, a zero means2d offset): the forward against the plain
+    chain on the card bit for bit, the backward against autograd through
+    it within 1e-4 of each gradient column's max, and their times beside
+    the byte bounds and the plain chain's (its forward; autograd's
+    backward through it)."""
+    import torch
+    from isogs_slam_tpu_torch.ops.project import (_ewa_parts,
+                                                  project_bwd_cuda,
+                                                  project_fwd_cuda)
+    from isogs_slam_tpu_torch.ops.rasterize import project_table_plain
+    from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
+    st = ctx["state"]
+    p = st.params
+    q0, t0_ = frames[0][2], frames[0][3]
+    mc, qc = transform_to_frame(p.means3d, p.unnorm_rotations, q0, t0_,
+                                gaussians_grad=False, camera_grad=False)
+    n = mc.shape[0]
+    ins = [x.detach().contiguous() for x in
+           (mc, qc, p.log_scales, p.logit_opacities, p.rgb_colors)]
+    ins.append(torch.zeros((n, 2), device=dev))
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    with torch.enable_grad():
+        table_p, proj = project_table_plain(
+            *leaves[:5], st.alive, cam, means2d_offset=leaves[5],
+            depth_col=True, mask_opacity=True)
+    table, radius, valid = project_fwd_cuda(*ins[:5], st.alive, cam, 0.0,
+                                            ins[5], True, True)
+    torch.cuda.synchronize()
+    tp = table_p.detach()
+    same = (table == tp) | (torch.isnan(table) & torch.isnan(tp))
+    fwd_err = float(torch.where(same, 0.0, (table - tp).abs()).max())
+    n_diff = int((~same).sum())
+    print(f"[project] N {n}, valid {int(valid.sum())}: table values that "
+          f"differ from the plain chain's {n_diff} (max {fwd_err:.3e}); "
+          f"radius equal {bool(torch.equal(radius, proj.radius))}, valid "
+          f"equal {bool(torch.equal(valid, proj.valid))}")
+    if n_diff or not (torch.equal(radius, proj.radius)
+                      and torch.equal(valid, proj.valid)):
+        raise AssertionError("project_fwd is not the plain chain bit for "
+                             "bit")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dtable = torch.randn(tuple(tp.shape), generator=gen, device=dev)
+    auto = torch.autograd.grad(table_p, leaves, dtable, retain_graph=True)
+    mine = project_bwd_cuda(*ins[:4], valid, dtable, cam, 3, True, True,
+                            want_offset=True)
+    e = _ewa_parts(*ins[:3], cam)
+    rows = (e["det"] == 0) | (e["det"].abs()
+                              > 1e-4 * (e["c00"] * e["c11"]).abs())
+    bwd_err = 0.0
+    for name, a, b in zip(("means_cam", "quats", "log_scales", "logit",
+                           "rgb", "offset"), auto, mine):
+        keep = rows & torch.isfinite(a).all(dim=1)
+        a, b = a[keep], b[keep]
+        rel = float(((a - b).abs().amax(dim=0)
+                     / a.abs().amax(dim=0).clamp(min=1e-30)).max())
+        bwd_err = max(bwd_err, float((a - b).abs().max()))
+        print(f"[project] d {name}: max error / column max {rel:.3e} (tol "
+              f"1.0e-04) on {int(keep.sum())} rows")
+        if not rel < 1e-4:
+            raise AssertionError(f"project_bwd disagrees (d {name})")
+    del e, auto, mine
+    ms_f = cuda_ms(lambda: project_fwd_cuda(*ins[:5], st.alive, cam, 0.0,
+                                            ins[5], True, True), 20)
+    ms_b = cuda_ms(lambda: project_bwd_cuda(*ins[:4], valid, dtable, cam, 3,
+                                            True, True, want_offset=True),
+                   20)
+    pms_f = cuda_ms(lambda: project_table_plain(
+        *ins[:5], st.alive, cam, means2d_offset=ins[5], depth_col=True,
+        mask_opacity=True), 5)
+    pms_b = cuda_ms(lambda: torch.autograd.grad(table_p, leaves, dtable,
+                                                retain_graph=True), 5)
+    for name, err, ms, pms, nb, no in (
+            ("project_fwd", fwd_err, ms_f, pms_f, PROJECT_FWD_BYTES * n,
+             PROJECT_FWD_OPS * n),
+            ("project_bwd", bwd_err, ms_b, pms_b, PROJECT_BWD_BYTES * n,
+             PROJECT_BWD_OPS * n)):
+        bms, by = bound(nb, no)
+        results[name] = dict(kernel=name, max_abs_err=err, ms=ms,
+                             plain_ms=pms, bound_ms=bms, bound_by=by,
+                             library_ms=None)
+        print(f"[project] {name} N {n}: {ms:.4f} ms (plain {pms:.4f} ms, "
+              f"bound {bms:.4f} ms by {by})")
+    del table_p, proj, leaves, ins, dtable
 
 
 def camera_inputs(ctx, rcfg, dev):
@@ -2912,6 +3015,7 @@ def main() -> int:
             print(f"{key} {ms_c:.4f} ms (plain {pms_c:.2f} ms, "
                   f"torch.segment_reduce {lib_c:.4f} ms on {lib_note}, "
                   f"bound {bms:.4f} ms by {by})")
+        project_kernels(ctx, frames, cam, dev, results)
     flips = {t: r["flipped"] for t, r in inputs.items()}
     print(f"pixels over tolerance per input (threshold flips): {flips}")
     del g, b, dg, d_exp, seg, seg_p, abs_sum, lib_in, rec, dg_rows, pos

@@ -9,7 +9,8 @@ cudaGetLastError() of its launch, which `check` turns into an exception.
 
 Each wrapper counts its launches in `LAUNCHES` (kernel name, with the tile
 count T and the slot count K for the compositing kernels -> count), so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels. Pointers that a C
+entry takes as optional are passed as None (NULL).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("composite", "segreduce")
+SOURCES = ("composite", "segreduce", "project")
 
 LAUNCHES: dict = {}
 _LIBS: dict = {}
@@ -37,6 +38,7 @@ _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 SIGNATURES = {
     "composite": {
         "composite_fwd": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -45,6 +47,12 @@ SIGNATURES = {
     },
     "segreduce": {
         "segreduce": [_P, _I, _P, _I, _I, _P, _P],
+    },
+    "project": {
+        "project_fwd": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _F,
+                        _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
+        "project_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                        _P, _P, _P, _P, _P, _P, _P, _P],
     },
 }
 

@@ -1,9 +1,10 @@
 """Differentiable 3D Gaussian rasterizer (counterpart of
 isogs_slam_tpu/ops/rasterize.py, main path).
 
-Projection and binning are plain PyTorch; compositing runs through the
-CUDA kernels of ops/composite.py and, in the mapping backward, the segment
-reduce of ops/segreduce.py:
+Binning is plain PyTorch; on CUDA tensors the projection into the render
+core's table runs through the kernel pair of ops/project.py, compositing
+through the CUDA kernels of ops/composite.py and, in the mapping backward,
+the segment reduce of ops/segreduce.py:
 
   * EWA projection with the 1.3*tanfov frustum clamp, low-pass 0.3,
     near-plane cull at z <= 0.2, OpenCV pixel convention u = fx*x/z + cx;
@@ -36,10 +37,9 @@ from ..utils.transforms import normalize, quat_mult
 from .composite import (ALPHA_MAX, ALPHA_MIN, T_EPS,  # noqa: F401
                         composite_backward, composite_forward,
                         composite_tiles)
+from .project import LOW_PASS, NEAR_CULL_Z, project_table_cuda
 from .segreduce import segment_reduce_rows
 
-NEAR_CULL_Z = 0.2
-LOW_PASS = 0.3
 CHUNK = 128   # gdata K is padded to a multiple of this (reference layout)
 
 
@@ -86,6 +86,8 @@ class Projected(NamedTuple):
     conic: torch.Tensor       # [N, 3] (A, B, C)
     radius: torch.Tensor      # [N] int32 3-sigma pixel radius (0 = culled)
     valid: torch.Tensor       # [N] bool
+    # the tile rects; None from project_table(rects=False), whose frozen
+    # binning reads none
     rect_min: torch.Tensor    # [N, 2] int64 tile rect (x, y) inclusive
     rect_max: torch.Tensor    # [N, 2] int64 exclusive
     rect_min_true: torch.Tensor  # margin-free rect
@@ -174,7 +176,42 @@ def project_gaussians(means_cam, quats, log_scales, alive, cam: Camera,
     """Per-Gaussian EWA projection. margin_px widens the binning rect only
     (frozen tile lists reused across pose updates stay supersets).
     means2d_offset: optional [N, 2] zero tensor added to (u, v); its
-    gradient is the densification signal d loss / d(u, v)."""
+    gradient is the densification signal d loss / d(u, v). On CUDA
+    tensors through kernel P (u, v and the conic are columns of its
+    table), else the plain chain."""
+    if means_cam.is_cuda:
+        table, radius, valid = project_table_cuda(
+            means_cam, quats, log_scales, None, None, alive, cam, margin_px,
+            means2d_offset)
+        return _projected(table, radius, valid, means_cam[:, 2], cam,
+                          margin_px)
+    return project_gaussians_plain(means_cam, quats, log_scales, alive, cam,
+                                   margin_px, means2d_offset)
+
+
+def _projected(table, radius, valid, depth, cam: Camera, margin_px=0.0,
+               rects: bool = True) -> Projected:
+    """The Projected view of kernel P's outputs; the tile rects (left None
+    when `rects` is False) come from the radius, which equals the plain
+    chain's wherever the row is valid."""
+    rect = [None] * 4
+    if rects:
+        ud, vd = table[:, 0].detach(), table[:, 1].detach()
+        rd = radius.to(torch.float32)
+        rx0, ry0, rx1, ry1 = _tile_rect(ud, vd, rd + margin_px, cam)
+        tx0, ty0, tx1, ty1 = _tile_rect(ud, vd, rd, cam)
+        rect = [torch.stack(p, dim=-1) for p in
+                ((rx0, ry0), (rx1, ry1), (tx0, ty0), (tx1, ty1))]
+    return Projected(u=table[:, 0], v=table[:, 1], depth=depth,
+                     conic=table[:, 2:5], radius=radius, valid=valid,
+                     rect_min=rect[0], rect_max=rect[1],
+                     rect_min_true=rect[2], rect_max_true=rect[3])
+
+
+def project_gaussians_plain(means_cam, quats, log_scales, alive,
+                            cam: Camera, margin_px: float = 0.0,
+                            means2d_offset=None) -> Projected:
+    """Plain version of project_gaussians: the eager chain of _ewa_core."""
     tz = means_cam[:, 2]
     u, v, cA, cB, cC, det, radius_f = _ewa_core(means_cam, quats,
                                                 log_scales, cam)
@@ -606,6 +643,46 @@ def _raster_table(proj: Projected, opacity, features):
                        + list(features.unbind(-1)), dim=1)
 
 
+def project_table(means_cam, quats, log_scales, logit_opacities, features,
+                  alive, cam: Camera, margin_px: float = 0.0,
+                  means2d_offset=None, depth_col: bool = False,
+                  mask_opacity: bool = False, rects: bool = True):
+    """The render core's table [N, 6 + F (+1)] (u, v, A, B, C,
+    sigmoid(logit), features, [z]) and the Projected it was made from.
+    mask_opacity zeroes the opacity of rows not valid at this pose (frozen
+    tile lists may reference them); depth_col appends the camera-frame
+    depth as the last feature (render_rgbd_sil's z). On CUDA tensors kernel
+    P writes the table in one pass (the Projected's tile rects only when
+    `rects`); on the CPU project_table_plain."""
+    with spans.fine("render.project"):
+        if not means_cam.is_cuda:
+            return project_table_plain(
+                means_cam, quats, log_scales, logit_opacities, features,
+                alive, cam, margin_px, means2d_offset, depth_col,
+                mask_opacity)
+        table, radius, valid = project_table_cuda(
+            means_cam, quats, log_scales, logit_opacities, features, alive,
+            cam, margin_px, means2d_offset, depth_col, mask_opacity)
+        return table, _projected(table, radius, valid, means_cam[:, 2], cam,
+                                 margin_px, rects)
+
+
+def project_table_plain(means_cam, quats, log_scales, logit_opacities,
+                        features, alive, cam: Camera, margin_px: float = 0.0,
+                        means2d_offset=None, depth_col: bool = False,
+                        mask_opacity: bool = False):
+    """Plain version of project_table (kernel P's): the eager chain,
+    project_gaussians_plain, then _raster_table."""
+    proj = project_gaussians_plain(means_cam, quats, log_scales, alive, cam,
+                                   margin_px, means2d_offset)
+    opacity = torch.sigmoid(logit_opacities[:, 0])
+    if mask_opacity:
+        opacity = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
+    if depth_col:
+        features = torch.cat([features, means_cam[:, 2:3]], dim=-1)
+    return _raster_table(proj, opacity, features), proj
+
+
 def composite(proj: Projected, opacity, features, binning: Binning,
               cam: Camera, cfg: RasterConfig, live_grad_cols=None,
               sq_col=None):
@@ -615,8 +692,14 @@ def composite(proj: Projected, opacity, features, binning: Binning,
     "scatter" gathers the rows and adds their gradients back by index.
     live_grad_cols: table columns whose gradients survive downstream; the
     backward scatters only those."""
-    F = features.shape[-1]
-    table = _raster_table(proj, opacity, features)            # [N, 6+F]
+    return _composite_table(_raster_table(proj, opacity, features),
+                            features.shape[-1], binning, cam, cfg,
+                            live_grad_cols, sq_col)
+
+
+def _composite_table(table, F: int, binning: Binning, cam: Camera,
+                     cfg: RasterConfig, live_grad_cols=None, sq_col=None):
+    """composite() of an assembled table [N, 6+F]."""
     live = tuple(live_grad_cols) if live_grad_cols is not None else None
     if cfg.resolve_bwd_mode() == "scatter":
         gdata = (table[binning.tile_gauss] if live is None else
@@ -656,23 +739,24 @@ def _tiles_to_image(tiles, cam: Camera):
 def render(means_cam, quats_cam, log_scales, logit_opacities, features,
            alive, cam: Camera, cfg: RasterConfig = RasterConfig(),
            binning: Binning | None = None, live_grad_cols=None, sq_col=None,
-           means2d_offset=None):
+           means2d_offset=None, depth_col: bool = False):
     """Full differentiable render. Returns dict(image [F(+1), H, W],
     final_T [H, W], radii [N], n_isect, n_overflow). means2d_offset: see
     project_gaussians; on the whole image its gradient comes back through
-    kernel B's du/dv and kernel C's columns 0-1."""
-    opacity = torch.sigmoid(logit_opacities[:, 0])
-    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam,
-                             means2d_offset=means2d_offset)
+    kernel B's du/dv and kernel C's columns 0-1. depth_col appends the
+    camera-frame depth to the features (see project_table)."""
+    # frozen tile lists may reference Gaussians culled at this pose: their
+    # opacity is zeroed; an inline binning serves one composite, so it is
+    # not culled
+    table, proj = project_table(
+        means_cam, quats_cam, log_scales, logit_opacities, features, alive,
+        cam, means2d_offset=means2d_offset, depth_col=depth_col,
+        mask_opacity=binning is not None, rects=binning is None)
     if binning is None:
-        # an inline binning serves one composite, so it is not culled
         binning = bin_gaussians(
             proj, cam, cfg, emit_exp=cfg.resolve_bwd_mode() == "segreduce")
-    else:
-        # frozen tile lists may reference Gaussians culled at this pose
-        opacity = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-    tiles_out, tiles_t = composite(proj, opacity, features, binning, cam,
-                                   cfg, live_grad_cols, sq_col=sq_col)
+    tiles_out, tiles_t = _composite_table(table, table.shape[1] - 6, binning,
+                                          cam, cfg, live_grad_cols, sq_col)
     return {"image": _tiles_to_image(tiles_out, cam),
             "final_T": _tiles_to_image(tiles_t[..., None], cam)[0],
             "radii": proj.radius, "n_isect": binning.n_isect,
@@ -693,10 +777,9 @@ def render_rgbd_sil(means_cam, quats_cam, log_scales, logit_opacities,
     [r, g, b, z] (+ z^2 synthesized in the kernel); the silhouette is
     1 - final_T. Returns (im [3,H,W], depth [1,H,W], sil [H,W],
     depth_sq [1,H,W], aux)."""
-    feats = torch.cat([rgb_colors, means_cam[:, 2:3]], dim=-1)
-    out = render(means_cam, quats_cam, log_scales, logit_opacities, feats,
-                 alive, cam, cfg, binning, live_grad_cols, sq_col=3,
-                 means2d_offset=means2d_offset)
+    out = render(means_cam, quats_cam, log_scales, logit_opacities,
+                 rgb_colors, alive, cam, cfg, binning, live_grad_cols,
+                 sq_col=3, means2d_offset=means2d_offset, depth_col=True)
     img = out["image"]
     return (img[0:3], img[3:4], 1.0 - out["final_T"], img[4:5],
             {"radii": out["radii"], "final_T": out["final_T"],
@@ -802,13 +885,11 @@ def render_tiles_subset(means_cam, quats_cam, log_scales, logit_opacities,
     live columns) or, when subset_uses_segreduce says so and the binning
     carries expansion positions, through the subset's expansion positions
     and kernel C. means2d_offset: see project_gaussians."""
-    opacity = torch.sigmoid(logit_opacities[:, 0])
-    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam,
-                             means2d_offset=means2d_offset)
     # frozen tile lists may reference Gaussians culled at this pose
-    opacity = torch.where(proj.valid, opacity, torch.zeros_like(opacity))
-    table = _raster_table(
-        proj, opacity, torch.cat([rgb_colors, means_cam[:, 2:3]], dim=-1))
+    table, proj = project_table(
+        means_cam, quats_cam, log_scales, logit_opacities, rgb_colors, alive,
+        cam, means2d_offset=means2d_offset, depth_col=True,
+        mask_opacity=True, rects=False)
     idx = binning.tile_gauss[sel]                          # [T_sub, K]
     counts = binning.tile_count[sel]
     t_sub = sel.shape[0]

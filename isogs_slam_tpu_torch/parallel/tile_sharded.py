@@ -17,9 +17,8 @@ import torch
 
 from ..core.camera import Camera
 from ..ops.rasterize import (RasterConfig, _GatherRowsSegreduce, _TileGrid,
-                             _raster_table, _tiles_to_image,
-                             _virtual_row_shift, bin_gaussians,
-                             composite_gdata, project_gaussians)
+                             _tiles_to_image, _virtual_row_shift,
+                             bin_gaussians, composite_gdata, project_table)
 from .dist import (Mesh, all_gather_shards_grad, make_mesh,
                    replicated_inputs, shard_range)
 
@@ -39,11 +38,10 @@ def render_tiles_sharded(mesh: Mesh, means_cam, quats_cam, log_scales,
     (ops/rasterize.render) does, on every rank."""
     F = features.shape[-1]
     T = cam.num_tiles
-    opacity = torch.sigmoid(logit_opacities[:, 0])
-    proj = project_gaussians(means_cam, quats_cam, log_scales, alive, cam)
+    table, proj = project_table(means_cam, quats_cam, log_scales,
+                                logit_opacities, features, alive, cam)
     binning = bin_gaussians(proj, cam, cfg, emit_exp=True)
-    (table,) = replicated_inputs([_raster_table(proj, opacity, features)],
-                                 mesh)
+    (table,) = replicated_inputs([table], mesh)
 
     lo, hi, per = shard_range(T, mesh)
     dev = table.device

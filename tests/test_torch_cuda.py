@@ -544,3 +544,129 @@ def test_viewer_render_cuda_matches_cpu(dev, tmp_path, with_sh):
         assert float((im1 - im2).abs().max()) < 1e-5
         assert float((d1 - d2).abs().max()) < 1e-4
         assert float((s1 - s2).abs().max()) < 1e-5
+
+
+def _project_rows(n, seed):
+    """Camera-frame rows as the mapping render sees them, with every kink
+    and guard of the projection on some rows: the near cull, tz = 0 and
+    behind the camera, both sides of the tanfov clamps, dead rows, a zero
+    quaternion, and degenerate footprints whose det rounds to 0."""
+    rng = np.random.default_rng(seed)
+    tanx, tany = 0.5 * 1200 / 600.0, 0.5 * 680 / 600.0
+    z = rng.uniform(0.3, 8.0, n)
+    x = rng.uniform(-1.2, 1.2, n) * tanx * z
+    y = rng.uniform(-1.2, 1.2, n) * tany * z
+    s = rng.uniform(-5.5, -2.5, (n, 3))
+    k = rng.integers(0, 20, n)
+    z[k == 0] = 0.2 + rng.uniform(-0.01, 0.01, int((k == 0).sum()))
+    z[k == 1] = -z[k == 1]
+    z[k == 2] = 0.0
+    far = k == 3
+    x[far] = rng.choice([-1, 1], int(far.sum())) * rng.uniform(
+        1.3, 4.0, int(far.sum())) * 1.3 * tanx * z[far]
+    y[k == 4] = -2.0 * 1.3 * tany * z[k == 4]
+    deg = k == 5
+    z[deg] = rng.uniform(0.25, 1.0, int(deg.sum()))
+    s[deg] = [4.0, -20.0, -20.0]
+    q = rng.normal(size=(n, 4))
+    q[:3] = 0.0
+    alive = rng.uniform(size=n) > 0.1
+    arrs = [np.stack([x, y, z], 1), q, s, rng.uniform(-3, 4, (n, 1)),
+            rng.uniform(0, 1, (n, 3)), rng.normal(0, 1, (n, 2))]
+    return [a.astype(np.float32) for a in arrs], alive
+
+
+@pytest.mark.parametrize("n", [1000, 1_245_184])
+@pytest.mark.parametrize("render", [True, False],
+                         ids=["render_table", "binning"])
+def test_project_kernels_match_plain(dev, n, render):
+    """Kernel P fwd against the plain chain on the card, bit for bit (table,
+    radius, valid); kernel P bwd against autograd through it, within 1e-4
+    of each gradient column's max. `render`: the mapping render's call
+    (opacity masked by valid, rgb + the depth column, a means2d offset);
+    else the binning's (the five columns u v A B C, a 2 px margin)."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.project import (_ewa_parts,
+                                                  project_bwd_cuda,
+                                                  project_fwd_cuda)
+    from isogs_slam_tpu_torch.ops.rasterize import (project_gaussians_plain,
+                                                    project_table_plain)
+    cam = Camera(width=1200, height=680, fx=600.0, fy=600.0, cx=599.5,
+                 cy=339.5)
+    arrs, alive = _project_rows(n, seed=n % 97)
+    ps = [torch.tensor(a, device=dev, requires_grad=True) for a in arrs]
+    al = torch.as_tensor(alive, device=dev)
+    if render:
+        table_p, proj = project_table_plain(*ps[:5], al, cam,
+                                            means2d_offset=ps[5],
+                                            depth_col=True, mask_opacity=True)
+        table, radius, valid = project_fwd_cuda(
+            *[p.detach() for p in ps[:5]], al, cam, 0.0, ps[5].detach(),
+            True, True)
+        wrt = ps
+    else:
+        proj = project_gaussians_plain(*ps[:3], al, cam, margin_px=2.0)
+        table_p = torch.stack([proj.u, proj.v, proj.conic[:, 0],
+                               proj.conic[:, 1], proj.conic[:, 2]], 1)
+        table, radius, valid = project_fwd_cuda(
+            *[p.detach() for p in ps[:3]], None, None, al, cam, 2.0)
+        assert table.shape == (n, 5)
+        wrt = ps[:3]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(table, table_p.detach(), rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.equal(radius, proj.radius)
+    assert torch.equal(valid, proj.valid)
+    assert 0.3 * n < int(valid.sum()) < 0.95 * n
+
+    rng = np.random.default_rng(1)
+    dtable = torch.tensor(rng.normal(size=tuple(table_p.shape)).astype(
+        np.float32), device=dev)
+    auto = torch.autograd.grad(table_p, wrt, dtable)
+    if render:
+        mine = project_bwd_cuda(*[p.detach() for p in ps[:4]], valid, dtable,
+                                cam, 3, True, True, want_offset=True)
+    else:
+        mine = project_bwd_cuda(*[p.detach() for p in ps[:3]], None, valid,
+                                dtable, cam, 0)[:3]
+    # rows whose det rounds to a tiny non-zero value: there the chain's own
+    # gradient is rounding noise of det (d det ~ 1 / det^2 cancelling
+    # against the c's), which only the same operations in the same order
+    # reproduce; det = 0 exactly (the guard) is held
+    e = _ewa_parts(*[p.detach() for p in ps[:3]], cam)
+    rows = (e["det"] == 0) | (e["det"].abs()
+                              > 1e-4 * (e["c00"] * e["c11"]).abs())
+    assert int((~rows).sum()) < 0.1 * n
+    assert int((e["det"] == 0).sum()) > 0
+    for name, a, b in zip(["means_cam", "quats", "log_scales", "logit",
+                           "rgb", "offset"], auto, mine):
+        keep = rows & torch.isfinite(a).all(dim=1)
+        a, b = a[keep], b[keep]
+        scale = a.abs().amax(dim=0).clamp(min=1e-30)
+        err = float(((a - b).abs().amax(dim=0) / scale).max())
+        assert err < 1e-4, f"d {name} off by {err:.2e} of its column max"
+
+
+def test_project_kernels_on_the_render_path(dev):
+    """render_rgbd_sil on the card projects through kernel P: the forward
+    under no_grad, the pair under grad, and the gradient flows."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.rasterize import (RasterConfig,
+                                                    render_rgbd_sil)
+    arrs, alive = _m2d_scene()
+    cam = Camera(width=96, height=80, fx=80.0, fy=80.0, cx=47.5, cy=39.5)
+    cfg = RasterConfig(max_per_tile=512)
+    ps = [torch.tensor(a, dtype=torch.float32, device=dev,
+                       requires_grad=True) for a in arrs]
+    al = torch.as_tensor(alive, device=dev)
+    _cuda.reset_launches()
+    with torch.no_grad():
+        render_rgbd_sil(*ps, al, cam, cfg)
+    assert _cuda.LAUNCHES.get("project_fwd") == 1
+    assert "project_bwd" not in _cuda.LAUNCHES
+    im, d, s, dsq, _ = render_rgbd_sil(*ps, al, cam, cfg)
+    gs = torch.autograd.grad(im.sum() + d.sum() + s.sum(), ps)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["project_fwd"] == 2
+    assert _cuda.LAUNCHES["project_bwd"] == 1
+    assert all(float(g.abs().max()) > 0 for g in gs)
