@@ -81,9 +81,10 @@ def _photometric_terms(im, depth, silhouette, depth_sq, gt_im, gt_depth,
 
     nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
     if lcfg.ignore_outlier_depth_loss:
-        depth_error = torch.abs(gt_depth - depth) * (gt_depth > 0)
-        mask = ((depth_error < 10 * _median(depth_error))
-                & (gt_depth > 0))
+        with spans.fine("loss.outlier_mask"):
+            depth_error = torch.abs(gt_depth - depth) * (gt_depth > 0)
+            mask = ((depth_error < 10 * _median(depth_error))
+                    & (gt_depth > 0))
     else:
         mask = gt_depth > 0
     mask = mask & nan_mask
@@ -180,10 +181,11 @@ def compute_loss_slots_subset(raw_sub, counts_sub, sel, cam_quat, cam_trans,
     uncertainty = (depth_sq - depth * depth).detach()
     nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
     if lcfg.ignore_outlier_depth_loss:
-        depth_error = (torch.abs(gt_depth - depth) * (gt_depth > 0)
-                       * valid_px)
-        mask = ((depth_error < 10 * _median(depth_error))
-                & (gt_depth > 0))
+        with spans.fine("loss.outlier_mask"):
+            depth_error = (torch.abs(gt_depth - depth) * (gt_depth > 0)
+                           * valid_px)
+            mask = ((depth_error < 10 * _median(depth_error))
+                    & (gt_depth > 0))
     else:
         mask = gt_depth > 0
     mask = mask & nan_mask & valid_px
@@ -275,8 +277,10 @@ def compute_loss_subsampled(params: GaussianParams, alive, cam_quat,
     nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
     mask = (gt_depth > 0) & nan_mask & core_px
     if lcfg.ignore_outlier_depth_loss:
-        depth_error = torch.abs(gt_depth - depth) * (gt_depth > 0) * core_px
-        mask = mask & (depth_error < 10 * _median(depth_error))
+        with spans.fine("loss.outlier_mask"):
+            depth_error = (torch.abs(gt_depth - depth) * (gt_depth > 0)
+                           * core_px)
+            mask = mask & (depth_error < 10 * _median(depth_error))
     mask = mask.detach()
 
     d_abs = torch.abs(gt_depth - depth)

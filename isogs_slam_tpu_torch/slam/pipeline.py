@@ -1011,6 +1011,7 @@ class SLAM:
             self._sync()
         if res is not None:
             iters = int(res.iters_run)
+            spans.count("tracking.iters", iters)
             with spans.span("sync.loss_log"):
                 log = res.loss_log.cpu().numpy()
             metrics.append_block(time_idx, "tracking", log)
@@ -1201,6 +1202,7 @@ class SLAM:
         d["Host Syncs per Frame"] = (
             sum(n for k, (_, n) in totals.items()
                 if k.startswith(spans.SYNC_PREFIX)) / max(n_frames, 1))
+        d["Counters"] = dict(sorted(self.trace.counters.items()))
         with open(os.path.join(self.output_dir, "runtime_stats.json"),
                   "w") as f:
             json.dump(d, f, indent=2)

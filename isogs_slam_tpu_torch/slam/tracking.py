@@ -282,6 +282,7 @@ def adam_pose_loop(loss_fn, pose0: tuple, tcfg: TrackingConfig,
                 met = bool(out.depth < tcfg.depth_loss_thres)
             if not met:
                 cur_max, doubled, stop = 2 * tcfg.num_iters, True, False
+                spans.count("tracking.doubled")
         # it - 1 is the iteration just evaluated; a stall is `patience`
         # evaluated iterations in a row without a new best (the one read
         # of the device per iteration that this knob costs)

@@ -26,6 +26,10 @@ current tracer they return one shared no-op context manager. Two tiers:
   run started under an active torch profiler (`start_run`); otherwise one
   attribute check.
 
+Beside the spans, `count(name, n)` adds n to a named counter of the
+current tracer (a dict add, always recorded under a current tracer) from
+a number the host already holds: a counter never reads the card.
+
 No span synchronizes, copies or launches anything. Under the run's own
 profiler (config["profile_trace_dir"]) spans also open
 `torch.profiler.record_function` ranges, so its Chrome trace names the
@@ -134,6 +138,7 @@ class Tracer:
         self.fine = False
         self.annotate = False
         self.profiler = None
+        self.counters: dict = {}         # name -> total of count() calls
         self._anchor = (time.perf_counter_ns(), time.time_ns())
 
     def span(self, name: str) -> _Span:
@@ -199,12 +204,13 @@ class Tracer:
 
     def summary(self) -> dict:
         """What FINISHED keeps of a run: frames (its "frame" spans), span
-        totals, the frames' self seconds, the sync spans' count, whether
-        fine spans were on, and the tracer itself when an outside profiler
-        recorded the run (for the join with that profile)."""
+        totals, the counters, the frames' self seconds, the sync spans'
+        count, whether fine spans were on, and the tracer itself when an
+        outside profiler recorded the run (for the join with that
+        profile)."""
         totals = self.totals()
         return {"frames": totals.get("frame", [0.0, 0])[1],
-                "totals": totals,
+                "totals": totals, "counters": dict(self.counters),
                 "frame_self_s": self.self_seconds("frame"),
                 "syncs": sum(n for k, (_, n) in totals.items()
                              if k.startswith(SYNC_PREFIX)),
@@ -264,6 +270,14 @@ def fine(name: str):
     tracer's run started under a profiler."""
     tr = _current
     return _Span(tr, name) if tr is not None and tr.fine else NOOP
+
+
+def count(name: str, n: int = 1):
+    """Add n to the current tracer's counter `name` (nothing without a
+    current tracer). `n` is a host number: no read of the card."""
+    tr = _current
+    if tr is not None:
+        tr.counters[name] = tr.counters.get(name, 0) + n
 
 
 def fine_call(name: str):
