@@ -1,0 +1,15 @@
+"""Device milliseconds of kernel pair Q (csrc/bin.cu bin_count_kernel and
+bin_expand_kernel, the tile binning's count and its expansion into sort
+keys) per frame of the traced job, from the profiler's trace. None where
+no such kernel ran."""
+
+NAMES = ("bin_count_kernel", "bin_expand_kernel")
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if not tr or not ctx["trace_frames"]:
+        return None
+    s = sum(v for k, v in tr["kernel_s"].items()
+            if any(n in k for n in NAMES))
+    return 1000.0 * s / ctx["trace_frames"] if s > 0 else None

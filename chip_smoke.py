@@ -227,7 +227,9 @@ SOURCES = {"composite_fwd": "isogs_slam_tpu_torch/csrc/composite.cu",
            "composite_bwd": "isogs_slam_tpu_torch/csrc/composite.cu",
            "segreduce": "isogs_slam_tpu_torch/csrc/segreduce.cu",
            "project_fwd": "isogs_slam_tpu_torch/csrc/project.cu",
-           "project_bwd": "isogs_slam_tpu_torch/csrc/project.cu"}
+           "project_bwd": "isogs_slam_tpu_torch/csrc/project.cu",
+           "bin_count": "isogs_slam_tpu_torch/csrc/bin.cu",
+           "bin_expand": "isogs_slam_tpu_torch/csrc/bin.cu"}
 REPLACES = {
     "composite_fwd": "isogs_slam_tpu/ops/pallas_composite.py:498",
     "composite_bwd": "isogs_slam_tpu/ops/pallas_composite.py:539",
@@ -235,7 +237,10 @@ REPLACES = {
     # plain XLA in the JAX package (no Pallas kernel): _ewa_core and
     # project_gaussians, and the render's table
     "project_fwd": "isogs_slam_tpu/ops/rasterize.py:155",
-    "project_bwd": "isogs_slam_tpu/ops/rasterize.py:155"}
+    "project_bwd": "isogs_slam_tpu/ops/rasterize.py:155",
+    # plain XLA too: bin_gaussians' fixed-capacity expansion
+    "bin_count": "isogs_slam_tpu/ops/rasterize.py:398",
+    "bin_expand": "isogs_slam_tpu/ops/rasterize.py:398"}
 # bytes a row kernel P moves in the mapping render's call (rgb + z, masked
 # opacity, a means2d offset): forward reads means 12, quats 16, scales 12,
 # logit 4, rgb 12, alive 1, offset 8 and writes the table 40, radius 4,
@@ -245,6 +250,14 @@ REPLACES = {
 # backward (it recomputes the forward)
 PROJECT_FWD_BYTES, PROJECT_BWD_BYTES = 110, 149
 PROJECT_FWD_OPS, PROJECT_BWD_OPS = 130, 330
+# bytes kernel pair Q moves: both read (u, v) of the binning's 20-byte table
+# rows (the whole row comes in), radius 4 and valid 1; Q count writes the
+# count 4, Q expand reads the offset 8 and the quantized depth 4 a row and
+# writes key 8 and source row 4 an entry
+BIN_COUNT_BYTES = 29
+BIN_EXPAND_ROW_BYTES, BIN_EXPAND_ENTRY_BYTES = 37, 12
+# the mapping phase's slots at replica.orbit's peak (N = 2 x capacity)
+BIN_SLOTS = 7
 
 
 def phase(name, t0):
@@ -569,6 +582,136 @@ def project_kernels(ctx, frames, cam, dev, results):
         print(f"[project] {name} N {n}: {ms:.4f} ms (plain {pms:.4f} ms, "
               f"bound {bms:.4f} ms by {by})")
     del table_p, proj, leaves, ins, dtable
+
+
+def _kernel_launches(fn):
+    """Kernels (and copies) that one call of fn puts on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def bin_kernels(ctx, frames, cam, rcfg, rcfg_track, dev, results):
+    """Kernel pair Q at replica.orbit's shapes: the mapping phase's
+    BIN_SLOTS keyframe slots at N = 2 x capacity (the map and a copy 5 mm
+    away), margin 0, K = 512 with expansion positions, and a tracking
+    binning (margin 8 px, K = 256). Every Binning and the keys against the
+    eager chain on the card bit for bit; the kernels' times beside the byte
+    bounds and the eager chain's (its counting part for Q count, the whole
+    chain for Q expand) and the launches of one binning's expansion."""
+    import torch
+    from isogs_slam_tpu_torch.ops import rasterize as R
+    from isogs_slam_tpu_torch.ops.bin import bin_count_cuda, bin_expand_cuda
+    from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
+    st = ctx["state"]
+    p = st.params
+    means = torch.cat([p.means3d, p.means3d + 0.005])
+    rots = torch.cat([p.unnorm_rotations] * 2)
+    scales = torch.cat([p.log_scales] * 2)
+    alive = torch.cat([st.alive] * 2)
+    n = alive.shape[0]
+    T = cam.num_tiles
+    db = max(min(32 - int(T + 1).bit_length(), 24), 8)
+
+    def projs_at(margin, count):
+        out = []
+        for i in range(count):
+            q, t = frames[i % len(frames)][2:4]
+            mc, qc = transform_to_frame(
+                means, rots, q, t + 0.004 * (i // len(frames)),
+                gaussians_grad=False, camera_grad=False)
+            out.append(R.project_gaussians(mc, qc, scales, alive, cam,
+                                           margin_px=margin))
+        return out
+
+    for tag, margin, count, cfg, emit in (
+            ("map", 0.0, BIN_SLOTS, rcfg, True),
+            ("track", 8.0, 1, rcfg_track, False)):
+        with torch.no_grad():
+            projs = projs_at(margin, count)
+            M = cfg.max_isect(n)
+            q_b = [R.bin_gaussians(pr, cam, cfg, emit_exp=emit)
+                   for pr in projs]
+            e_b = [R.bin_gaussians_batched([pr], cam, cfg, emit_exp=emit,
+                                           plain=True)[0] for pr in projs]
+            same = True
+            for qb, eb in zip(q_b, e_b):
+                k_in = (torch.arange(cfg.max_per_tile, device=dev)[None, :]
+                        < qb.tile_count[:, None].long())
+                same &= bool(torch.equal(qb.tile_count, eb.tile_count))
+                for f in ("n_isect", "n_overflow", "n_true_overflow"):
+                    same &= int(getattr(qb, f)) == int(getattr(eb, f))
+                fields = (("tile_gauss", "slot_exp_pos") if emit
+                          else ("tile_gauss",))
+                for f in fields:
+                    a, b = getattr(qb, f), getattr(eb, f)
+                    same &= a.dtype == torch.int32 and bool(torch.equal(
+                        torch.where(k_in, a, -1), torch.where(k_in, b, -1)))
+                if emit:
+                    same &= bool(torch.equal(qb.exp_offsets, eb.exp_offsets))
+            src, key, parts, sizes = R._expand_batch(
+                projs[:1], cam, cfg, db, M, None, 0.0, 0.0)
+            e_src, e_key = R._expand(projs[0], cam, cfg, db, None, 0.0,
+                                     0.0)[:2]
+            same &= bool(torch.equal(src, e_src) and torch.equal(key, e_key))
+            isect = [int(b.n_isect) for b in q_b]
+            print(f"[bin {tag}] N {n}, {count} slot(s), margin {margin}, K "
+                  f"{cfg.max_per_tile}, M {M}: intersections {isect}; "
+                  f"Binnings and keys equal to the eager chain's bit for "
+                  f"bit: {same}")
+            if not same:
+                raise AssertionError(f"kernel pair Q differs from the eager "
+                                     f"chain ({tag})")
+            pr = projs[0]
+            offs, total = parts[0]
+            E = sizes[0]
+            qz = R._quantized_depth(pr, db - 1, torch.int32)
+            keys = torch.empty(E, dtype=torch.int64, device=dev)
+            srcs = torch.empty(E, dtype=torch.int32, device=dev)
+            del q_b, e_b, src, key, e_src, e_key
+
+            def eager_counts():
+                rmin, rmax = R.tile_rects(pr, cam)[:2]
+                span = torch.clamp(rmax - rmin, min=0)
+                c = torch.where(pr.valid, span[:, 0] * span[:, 1], 0)
+                return torch.cumsum(c, 0) - c
+
+            def eager_chain():
+                R._expand(pr, cam, cfg, db, None, 0.0, 0.0)
+
+            def q_chain():
+                c = bin_count_cuda(pr, cam)
+                o = torch.cumsum(c, 0, dtype=torch.int64) - c
+                bin_expand_cuda(pr, cam, o, qz, db, 0, keys, srcs)
+
+            ms_c = cuda_ms(lambda: bin_count_cuda(pr, cam), 20)
+            ms_e = cuda_ms(lambda: bin_expand_cuda(pr, cam, offs, qz, db, 0,
+                                                   keys, srcs), 20)
+            pms_c = cuda_ms(eager_counts, 5)
+            pms_e = cuda_ms(eager_chain, 5)
+            launches_q = _kernel_launches(q_chain)
+            launches_e = _kernel_launches(eager_chain)
+            print(f"[bin {tag}] one slot's expansion: kernel pair Q "
+                  f"{launches_q} launches (count, scan, expand), the eager "
+                  f"chain {launches_e}; E {E} of {total}")
+            suffix = "" if tag == "map" else f" {tag}"
+            for name, ms, pms, nb in (
+                    ("bin_count", ms_c, pms_c, BIN_COUNT_BYTES * n),
+                    ("bin_expand", ms_e, pms_e, BIN_EXPAND_ROW_BYTES * n
+                     + BIN_EXPAND_ENTRY_BYTES * E)):
+                bms, by = bound(nb, 0)
+                results[name + suffix] = dict(
+                    kernel=name, max_abs_err=0.0, ms=ms, plain_ms=pms,
+                    bound_ms=bms, bound_by=by, library_ms=None)
+                print(f"[bin {tag}] {name} N {n}: {ms:.4f} ms (plain "
+                      f"{pms:.4f} ms, bound {bms:.4f} ms by {by})")
+            del projs, offs, qz, keys, srcs, pr
+    torch.cuda.synchronize()
 
 
 def camera_inputs(ctx, rcfg, dev):
@@ -3016,6 +3159,7 @@ def main() -> int:
                   f"torch.segment_reduce {lib_c:.4f} ms on {lib_note}, "
                   f"bound {bms:.4f} ms by {by})")
         project_kernels(ctx, frames, cam, dev, results)
+        bin_kernels(ctx, frames, cam, rcfg, rcfg_track, dev, results)
     flips = {t: r["flipped"] for t, r in inputs.items()}
     print(f"pixels over tolerance per input (threshold flips): {flips}")
     del g, b, dg, d_exp, seg, seg_p, abs_sum, lib_in, rec, dg_rows, pos
@@ -3276,7 +3420,7 @@ def main() -> int:
                   f"({r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms) but "
                   f"launched on no path in this run (the launch counter "
                   f"does not tell one binning's rows from another's)"
-                  if key.startswith("segreduce[") else
+                  if key.startswith(("segreduce[", "bin_")) else
                   f"[kernels] {key}: held against its plain version "
                   f"({r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms) but "
                   f"launched on no path in this run")

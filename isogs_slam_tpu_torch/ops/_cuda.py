@@ -30,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("composite", "segreduce", "project")
+SOURCES = ("composite", "segreduce", "project", "bin")
 
 LAUNCHES: dict = {}
 _LIBS: dict = {}
@@ -39,6 +39,7 @@ _LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 SIGNATURES = {
     "composite": {
         "composite_fwd": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -53,6 +54,11 @@ SIGNATURES = {
                         _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
         "project_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                         _P, _P, _P, _P, _P, _P, _P, _P],
+    },
+    "bin": {
+        "bin_count": [_P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P],
+        "bin_expand": [_P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I, _L,
+                       _L, _P, _P, _P],
     },
 }
 

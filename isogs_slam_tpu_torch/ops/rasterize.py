@@ -1,10 +1,11 @@
 """Differentiable 3D Gaussian rasterizer (counterpart of
 isogs_slam_tpu/ops/rasterize.py, main path).
 
-Binning is plain PyTorch; on CUDA tensors the projection into the render
-core's table runs through the kernel pair of ops/project.py, compositing
-through the CUDA kernels of ops/composite.py and, in the mapping backward,
-the segment reduce of ops/segreduce.py:
+On CUDA tensors the projection into the render core's table runs through
+the kernel pair of ops/project.py, the binning's expansion through the
+kernel pair of ops/bin.py (the sort and the tile lists are PyTorch),
+compositing through the CUDA kernels of ops/composite.py and, in the
+mapping backward, the segment reduce of ops/segreduce.py:
 
   * EWA projection with the 1.3*tanfov frustum clamp, low-pass 0.3,
     near-plane cull at z <= 0.2, OpenCV pixel convention u = fx*x/z + cx;
@@ -37,6 +38,7 @@ from ..utils.transforms import normalize, quat_mult
 from .composite import (ALPHA_MAX, ALPHA_MIN, T_EPS,  # noqa: F401
                         composite_backward, composite_forward,
                         composite_tiles)
+from .bin import bin_count_cuda, bin_expand_cuda
 from .project import LOW_PASS, NEAR_CULL_Z, project_table_cuda
 from .segreduce import segment_reduce_rows
 
@@ -86,12 +88,8 @@ class Projected(NamedTuple):
     conic: torch.Tensor       # [N, 3] (A, B, C)
     radius: torch.Tensor      # [N] int32 3-sigma pixel radius (0 = culled)
     valid: torch.Tensor       # [N] bool
-    # the tile rects; None from project_table(rects=False), whose frozen
-    # binning reads none
-    rect_min: torch.Tensor    # [N, 2] int64 tile rect (x, y) inclusive
-    rect_max: torch.Tensor    # [N, 2] int64 exclusive
-    rect_min_true: torch.Tensor  # margin-free rect
-    rect_max_true: torch.Tensor
+    # pixels the binning rect is widened by (tile_rects forms the rects)
+    margin_px: float = 0.0
 
 
 def _ewa_core(means_cam, quats, log_scales, cam: Camera):
@@ -169,6 +167,20 @@ def _tile_rect(u, v, r, cam: Camera):
             cl((v + r + TILE - 1) / TILE, gy))
 
 
+def tile_rects(proj: Projected, cam: Camera):
+    """(rect_min, rect_max, rect_min_true, rect_max_true) [N, 2] int64:
+    the binning rect (radius + proj.margin_px) and the margin-free one, in
+    tiles (x, y), min inclusive, max exclusive, from the radius, which is
+    the plain chain's wherever the row is valid (kernel Q forms the same
+    rects in registers)."""
+    ud, vd = proj.u.detach(), proj.v.detach()
+    rd = proj.radius.to(torch.float32)
+    rx0, ry0, rx1, ry1 = _tile_rect(ud, vd, rd + proj.margin_px, cam)
+    tx0, ty0, tx1, ty1 = _tile_rect(ud, vd, rd, cam)
+    return tuple(torch.stack(p, dim=-1) for p in
+                 ((rx0, ry0), (rx1, ry1), (tx0, ty0), (tx1, ty1)))
+
+
 @spans.fine_call("render.project")
 def project_gaussians(means_cam, quats, log_scales, alive, cam: Camera,
                       margin_px: float = 0.0,
@@ -183,29 +195,16 @@ def project_gaussians(means_cam, quats, log_scales, alive, cam: Camera,
         table, radius, valid = project_table_cuda(
             means_cam, quats, log_scales, None, None, alive, cam, margin_px,
             means2d_offset)
-        return _projected(table, radius, valid, means_cam[:, 2], cam,
-                          margin_px)
+        return _projected(table, radius, valid, means_cam[:, 2], margin_px)
     return project_gaussians_plain(means_cam, quats, log_scales, alive, cam,
                                    margin_px, means2d_offset)
 
 
-def _projected(table, radius, valid, depth, cam: Camera, margin_px=0.0,
-               rects: bool = True) -> Projected:
-    """The Projected view of kernel P's outputs; the tile rects (left None
-    when `rects` is False) come from the radius, which equals the plain
-    chain's wherever the row is valid."""
-    rect = [None] * 4
-    if rects:
-        ud, vd = table[:, 0].detach(), table[:, 1].detach()
-        rd = radius.to(torch.float32)
-        rx0, ry0, rx1, ry1 = _tile_rect(ud, vd, rd + margin_px, cam)
-        tx0, ty0, tx1, ty1 = _tile_rect(ud, vd, rd, cam)
-        rect = [torch.stack(p, dim=-1) for p in
-                ((rx0, ry0), (rx1, ry1), (tx0, ty0), (tx1, ty1))]
+def _projected(table, radius, valid, depth, margin_px=0.0) -> Projected:
+    """The Projected view of kernel P's outputs."""
     return Projected(u=table[:, 0], v=table[:, 1], depth=depth,
                      conic=table[:, 2:5], radius=radius, valid=valid,
-                     rect_min=rect[0], rect_max=rect[1],
-                     rect_min_true=rect[2], rect_max_true=rect[3])
+                     margin_px=float(margin_px))
 
 
 def project_gaussians_plain(means_cam, quats, log_scales, alive,
@@ -222,27 +221,22 @@ def project_gaussians_plain(means_cam, quats, log_scales, alive,
     valid = alive & (tz > NEAR_CULL_Z) & (det != 0)
     ud, vd, rd = u.detach(), v.detach(), radius_f.detach()
     rx0, ry0, rx1, ry1 = _tile_rect(ud, vd, rd + margin_px, cam)
-    tx0, ty0, tx1, ty1 = _tile_rect(ud, vd, rd, cam)
     touched = torch.clamp(rx1 - rx0, min=0) * torch.clamp(ry1 - ry0, min=0)
     valid = valid & (touched > 0) & (rd > 0)
     radius = torch.where(valid, rd, torch.zeros_like(rd)).to(torch.int32)
     return Projected(u=u, v=v, depth=tz, conic=conic, radius=radius,
-                     valid=valid,
-                     rect_min=torch.stack([rx0, ry0], dim=-1),
-                     rect_max=torch.stack([rx1, ry1], dim=-1),
-                     rect_min_true=torch.stack([tx0, ty0], dim=-1),
-                     rect_max_true=torch.stack([tx1, ty1], dim=-1))
+                     valid=valid, margin_px=float(margin_px))
 
 
 class Binning(NamedTuple):
-    tile_gauss: torch.Tensor    # [T, K] int64 gaussian per slot
+    tile_gauss: torch.Tensor    # [T, K] int32 gaussian per slot
     tile_count: torch.Tensor    # [T] int32 valid slots (<= K)
     n_isect: torch.Tensor       # [] int64 intersections generated
     n_overflow: torch.Tensor    # [] int64 dropped (isect capacity or K cap)
     n_true_overflow: torch.Tensor  # [] int64 margin-free ones the K cap drops
-    # emit_exp=True: expansion position of each slot (sentinel M for
-    # padding slots) and the per-Gaussian segment offsets [N+1] (int32,
-    # clamped to M) of the gaussian-major expansion order
+    # emit_exp=True: expansion position of each slot ([T, K] int32,
+    # sentinel M for padding slots) and the per-Gaussian segment offsets
+    # [N+1] (int32, clamped to M) of the gaussian-major expansion order
     slot_exp_pos: torch.Tensor | None = None
     exp_offsets: torch.Tensor | None = None
 
@@ -329,13 +323,13 @@ def cull_tile_slots(binning: Binning, proj: Projected, opacity,
         tile_count=new_count, slot_exp_pos=sep)
 
 
-def _tight_rects(proj: Projected, cam: Camera, cfg: RasterConfig, opacity,
-                 cull_slack_px, cull_logit_drift: float):
+def _tight_rects(proj: Projected, rects, cam: Camera, cfg: RasterConfig,
+                 opacity, cull_slack_px, cull_logit_drift: float):
     """(rect_min, rect_max, rect_min_true, rect_max_true, valid) with the
-    radius rects intersected with the tile AABB of the contribution
-    ellipse q <= qmax (half-extents sqrt(qmax * cov_xx), cov = conic^-1).
-    The exclusive max is floor((u + rx) / TILE) + 1: the last covered
-    pixel floor(u + rx) lives in that tile. getRect's
+    radius rects `rects` (tile_rects) intersected with the tile AABB of
+    the contribution ellipse q <= qmax (half-extents sqrt(qmax * cov_xx),
+    cov = conic^-1). The exclusive max is floor((u + rx) / TILE) + 1: the
+    last covered pixel floor(u + rx) lives in that tile. getRect's
     floor((x + TILE - 1) / TILE) under-counts a tile for fractional
     extents."""
     cA, cB, cC = proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2]
@@ -360,10 +354,9 @@ def _tight_rects(proj: Projected, cam: Camera, cfg: RasterConfig, opacity,
 
     em0, em1 = erect(ex + cull_slack_px, ey + cull_slack_px)
     et0, et1 = erect(ex, ey)
-    return (torch.maximum(proj.rect_min, em0),
-            torch.minimum(proj.rect_max, em1),
-            torch.maximum(proj.rect_min_true, et0),
-            torch.minimum(proj.rect_max_true, et1),
+    rmin, rmax, rmin_true, rmax_true = rects
+    return (torch.maximum(rmin, em0), torch.minimum(rmax, em1),
+            torch.maximum(rmin_true, et0), torch.minimum(rmax_true, et1),
             proj.valid & (op_bound >= ALPHA_MIN))
 
 
@@ -382,21 +375,31 @@ def bin_gaussians(proj: Projected, cam: Camera, cfg: RasterConfig,
                                  cull_slack_px, cull_logit_drift)[0]
 
 
+def _quantized_depth(proj: Projected, dqb: int, dtype):
+    """[N] log depth between the near cull and 1000, quantized to dqb
+    bits."""
+    depth = proj.depth.detach()
+    zn, zf = NEAR_CULL_Z, 1000.0
+    tq = torch.log(torch.clamp(depth, zn, zf) / zn) / float(np.log(zf / zn))
+    return (tq * ((1 << dqb) - 1)).to(dtype)
+
+
 def _expand(proj: Projected, cam: Camera, cfg: RasterConfig, db: int,
             opacity, cull_slack_px, cull_logit_drift):
     """One projection's gaussian-major expansion, truncated to the M
-    capacity: (src [E] gaussian of each entry, key [E] = tile << db |
+    capacity, as an eager chain (the plain version of kernel pair Q):
+    (src [E] int32 gaussian of each entry, key [E] int64 = tile << db |
     margin bit | quantized log depth, offs [N] exclusive prefix of the
     per-Gaussian tile counts, total)."""
     dev = proj.u.device
     N = proj.u.shape[0]
     dqb = db - 1
-    rmin, rmax = proj.rect_min, proj.rect_max
-    rmin_true, rmax_true, valid = (proj.rect_min_true, proj.rect_max_true,
-                                   proj.valid)
+    rects = tile_rects(proj, cam)
+    rmin, rmax, rmin_true, rmax_true = rects
+    valid = proj.valid
     if cfg.tight_rect and opacity is not None:
         rmin, rmax, rmin_true, rmax_true, valid = _tight_rects(
-            proj, cam, cfg, opacity.detach(), cull_slack_px,
+            proj, rects, cam, cfg, opacity.detach(), cull_slack_px,
             cull_logit_drift)
     span_x = torch.clamp(rmax[:, 0] - rmin[:, 0], min=0)
     span_y = torch.clamp(rmax[:, 1] - rmin[:, 1], min=0)
@@ -405,11 +408,7 @@ def _expand(proj: Projected, cam: Camera, cfg: RasterConfig, db: int,
     with spans.span("sync.bin_total"):
         total = int(counts.sum())                      # one host sync
     E = min(total, cfg.max_isect(N))                   # entries kept
-
-    depth = proj.depth.detach()
-    zn, zf = NEAR_CULL_Z, 1000.0
-    tq = torch.log(torch.clamp(depth, zn, zf) / zn) / float(np.log(zf / zn))
-    qz = (tq * ((1 << dqb) - 1)).to(torch.int64)
+    qz = _quantized_depth(proj, dqb, torch.int64)
 
     src = torch.repeat_interleave(torch.arange(N, device=dev), counts,
                                   output_size=total)[:E]
@@ -423,20 +422,64 @@ def _expand(proj: Projected, cam: Camera, cfg: RasterConfig, db: int,
     in_true = ((tile_x >= tmin[:, 0]) & (tile_y >= tmin[:, 1])
                & (tile_x < tmax[:, 0]) & (tile_y < tmax[:, 1]))
     margin_bit = torch.where(in_true, 0, 1 << dqb)
-    return src, (tile_id << db) | margin_bit | qz[src], offs, total
+    return (src.to(torch.int32), (tile_id << db) | margin_bit | qz[src],
+            offs, total)
+
+
+def _expand_batch(projs, cam: Camera, cfg: RasterConfig, db: int, M: int,
+                  opacity, cull_slack_px, cull_logit_drift,
+                  plain: bool = False):
+    """The S projections' expansions in one buffer: (src [sum E] int32,
+    key [sum E] int64 with each projection's index b above its tile ids,
+    [(offs, total)] per projection, [E] per projection). On CUDA tensors
+    (but for cfg.tight_rect) kernel pair Q writes them: the counts, one
+    host read of each total, then each projection's keys in place; else
+    (and when `plain`) the eager chain of _expand."""
+    T = cam.num_tiles
+    if (plain or not projs[0].u.is_cuda
+            or (cfg.tight_rect and opacity is not None)):
+        spans.count("render.bin.eager", len(projs))
+        parts = [_expand(p, cam, cfg, db, opacity, cull_slack_px,
+                         cull_logit_drift) for p in projs]
+        src = torch.cat([p[0] for p in parts])
+        key = torch.cat([p[1] + ((b * T) << db)
+                         for b, p in enumerate(parts)])
+        return (src, key, [(p[2], p[3]) for p in parts],
+                [p[0].shape[0] for p in parts])
+    spans.count("render.bin.kernel", len(projs))
+    dev = projs[0].u.device
+    totals = []
+    for p in projs:
+        counts = bin_count_cuda(p, cam)
+        cum = torch.cumsum(counts, 0, dtype=torch.int64)
+        with spans.span("sync.bin_total"):
+            total = int(cum[-1]) if cum.shape[0] else 0   # one host sync
+        totals.append((cum - counts, total))
+    sizes = [min(total, M) for _, total in totals]
+    key = torch.empty(sum(sizes), dtype=torch.int64, device=dev)
+    src = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    at = 0
+    for b, (p, (offs, _), E) in enumerate(zip(projs, totals, sizes)):
+        bin_expand_cuda(p, cam, offs, _quantized_depth(p, db - 1,
+                                                       torch.int32),
+                        db, b * T, key[at:at + E], src[at:at + E])
+        at += E
+    return src, key, totals, sizes
 
 
 @spans.fine_call("render.bin")
 @torch.no_grad()
 def bin_gaussians_batched(projs, cam: Camera, cfg: RasterConfig,
                           emit_exp: bool = False, opacity=None,
-                          cull_slack_px=0.0, cull_logit_drift: float = 0.0
-                          ) -> list:
+                          cull_slack_px=0.0, cull_logit_drift: float = 0.0,
+                          plain: bool = False) -> list:
     """bin_gaussians of S projections of one map (S camera poses) with one
     sort: the batch index sits above the tile id in the int64 key, so the
     stable sort leaves each projection's entries as its own sort would.
     Returns S Binnings equal to the serial ones (slots at or past a tile's
-    count, which every consumer masks, may hold other indices)."""
+    count, which every consumer masks, may hold other indices). `plain`
+    expands by the eager chain on any device (kernel pair Q's plain
+    version, which gives the same Binnings)."""
     dev = projs[0].u.device
     N = projs[0].u.shape[0]
     S = len(projs)
@@ -447,19 +490,25 @@ def bin_gaussians_batched(projs, cam: Camera, cfg: RasterConfig,
     db = max(min(db, 24), 8)
     dqb = db - 1
 
-    parts = [_expand(p, cam, cfg, db, opacity, cull_slack_px,
-                     cull_logit_drift) for p in projs]
-    sizes = [p[0].shape[0] for p in parts]
+    src, key, parts, sizes = _expand_batch(projs, cam, cfg, db, M, opacity,
+                                           cull_slack_px, cull_logit_drift,
+                                           plain)
+    if max(M, sum(sizes)) >= 1 << 31:
+        raise ValueError(f"intersection capacity {M} (or the batch's "
+                         f"{sum(sizes)} entries) does not fit the "
+                         f"binning's int32 indices")
     base = np.concatenate([[0], np.cumsum(sizes)])
-    src = torch.cat([p[0] for p in parts])
-    key = torch.cat([p[1] + ((b * T) << db) for b, p in enumerate(parts)])
     sorted_key, perm = torch.sort(key, stable=True)
+    del key
     sorted_gauss = src[perm]
+    del src
+    perm = perm.to(torch.int32) if emit_exp else None
 
     tids = torch.arange(S * T, device=dev, dtype=torch.int64)
     starts = torch.searchsorted(sorted_key, tids << db)
     ends = torch.searchsorted(sorted_key, (tids + 1) << db)
     ends_true = torch.searchsorted(sorted_key, (tids << db) | (1 << dqb))
+    del sorted_key
     full_count = ends - starts
     tile_count = torch.clamp(full_count, max=K)
     dropped = (full_count - tile_count).reshape(S, T).sum(1)
@@ -471,7 +520,7 @@ def bin_gaussians_batched(projs, cam: Camera, cfg: RasterConfig,
     # ever sit at slots k >= count
     rows = starts[:, None] + torch.arange(K, device=dev)[None, :]
     k_in = torch.arange(K, device=dev)[None, :] < tile_count[:, None]
-    pad = torch.zeros(K, dtype=torch.int64, device=dev)
+    pad = torch.zeros(K, dtype=torch.int32, device=dev)
     tile_gauss = torch.cat([sorted_gauss, pad])[rows].reshape(S, T, K)
     if emit_exp:
         # a slot's position in its own projection's expansion; slots past
@@ -480,7 +529,7 @@ def bin_gaussians_batched(projs, cam: Camera, cfg: RasterConfig,
         k_in = k_in.reshape(S, T, K)
     tile_count = tile_count.to(torch.int32).reshape(S, T)
     out = []
-    for b, (_, _, offs, total) in enumerate(parts):
+    for b, (offs, total) in enumerate(parts):
         slot_exp_pos = exp_offsets = None
         if emit_exp:
             slot_exp_pos = torch.where(k_in[b], slot_pos[b] - int(base[b]),
@@ -646,14 +695,13 @@ def _raster_table(proj: Projected, opacity, features):
 def project_table(means_cam, quats, log_scales, logit_opacities, features,
                   alive, cam: Camera, margin_px: float = 0.0,
                   means2d_offset=None, depth_col: bool = False,
-                  mask_opacity: bool = False, rects: bool = True):
+                  mask_opacity: bool = False):
     """The render core's table [N, 6 + F (+1)] (u, v, A, B, C,
     sigmoid(logit), features, [z]) and the Projected it was made from.
     mask_opacity zeroes the opacity of rows not valid at this pose (frozen
     tile lists may reference them); depth_col appends the camera-frame
     depth as the last feature (render_rgbd_sil's z). On CUDA tensors kernel
-    P writes the table in one pass (the Projected's tile rects only when
-    `rects`); on the CPU project_table_plain."""
+    P writes the table in one pass; on the CPU project_table_plain."""
     with spans.fine("render.project"):
         if not means_cam.is_cuda:
             return project_table_plain(
@@ -663,8 +711,8 @@ def project_table(means_cam, quats, log_scales, logit_opacities, features,
         table, radius, valid = project_table_cuda(
             means_cam, quats, log_scales, logit_opacities, features, alive,
             cam, margin_px, means2d_offset, depth_col, mask_opacity)
-        return table, _projected(table, radius, valid, means_cam[:, 2], cam,
-                                 margin_px, rects)
+        return table, _projected(table, radius, valid, means_cam[:, 2],
+                                 margin_px)
 
 
 def project_table_plain(means_cam, quats, log_scales, logit_opacities,
@@ -751,7 +799,7 @@ def render(means_cam, quats_cam, log_scales, logit_opacities, features,
     table, proj = project_table(
         means_cam, quats_cam, log_scales, logit_opacities, features, alive,
         cam, means2d_offset=means2d_offset, depth_col=depth_col,
-        mask_opacity=binning is not None, rects=binning is None)
+        mask_opacity=binning is not None)
     if binning is None:
         binning = bin_gaussians(
             proj, cam, cfg, emit_exp=cfg.resolve_bwd_mode() == "segreduce")
@@ -889,7 +937,7 @@ def render_tiles_subset(means_cam, quats_cam, log_scales, logit_opacities,
     table, proj = project_table(
         means_cam, quats_cam, log_scales, logit_opacities, rgb_colors, alive,
         cam, means2d_offset=means2d_offset, depth_col=True,
-        mask_opacity=True, rects=False)
+        mask_opacity=True)
     idx = binning.tile_gauss[sel]                          # [T_sub, K]
     counts = binning.tile_count[sel]
     t_sub = sel.shape[0]

@@ -670,3 +670,150 @@ def test_project_kernels_on_the_render_path(dev):
     assert _cuda.LAUNCHES["project_fwd"] == 2
     assert _cuda.LAUNCHES["project_bwd"] == 1
     assert all(float(g.abs().max()) > 0 for g in gs)
+
+
+# the cells' image shapes: Replica's 1200x680 (T = 3225) and TUM fr1's
+# 640x480 (T = 1200)
+BIN_CAMS = {"1200x680": dict(width=1200, height=680, fx=600.0, fy=600.0,
+                             cx=599.5, cy=339.5),
+            "640x480": dict(width=640, height=480, fx=517.3, fy=516.5,
+                            cx=318.6, cy=255.3)}
+
+
+def _bin_params(dev, cam, n=300_000, seed=0):
+    """A map in the camera's view: 2% dead rows, 2% behind the near
+    plane, 2% off the image (zero tile counts), and 5 rows near the camera
+    whose rects cover the whole grid."""
+    from isogs_slam_tpu_torch.core.gaussians import GaussianParams
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(0.8, 6.0, n)
+    means = np.stack([rng.uniform(-1.05, 1.05, n) * z * cam.cx / cam.fx,
+                      rng.uniform(-1.05, 1.05, n) * z * cam.cy / cam.fy,
+                      z], -1)
+    k = n // 50
+    means[:k, 2] = rng.uniform(-1.0, 0.19, k)
+    means[k:2 * k, 0] = rng.choice([-1, 1], k) * 20 * means[k:2 * k, 2]
+    means[2 * k:2 * k + 5] = [[0.0, 0.0, 0.9]] * 5
+    scales = np.exp(rng.uniform(np.log(0.002), np.log(0.03), (n, 3)))
+    scales[2 * k:2 * k + 5] = 4.0
+    alive = np.ones(n, bool)
+    alive[-k:] = False
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    params = GaussianParams(
+        means3d=t(means), rgb_colors=t(rng.uniform(0, 1, (n, 3))),
+        unnorm_rotations=t(rng.normal(size=(n, 4))),
+        logit_opacities=t(rng.normal(size=(n, 1))),
+        log_scales=t(np.log(scales)))
+    return params, torch.as_tensor(alive, device=dev)
+
+
+def _bin_projs(params, alive, cam, margin, S):
+    """Kernel P's projections of the map at S poses (small translations)."""
+    from isogs_slam_tpu_torch.ops.rasterize import project_gaussians
+    dev = params.means3d.device
+    out = []
+    for s in range(S):
+        shift = torch.tensor([0.013 * s, -0.007 * s, 0.011 * s], device=dev)
+        out.append(project_gaussians(params.means3d + shift,
+                                     params.unnorm_rotations,
+                                     params.log_scales, alive, cam,
+                                     margin_px=margin))
+    return out
+
+
+@pytest.mark.parametrize("S,trunc", [(1, False), (3, False), (1, True),
+                                     (3, True)],
+                         ids=["S1", "S3", "S1_cap", "S3_cap"])
+@pytest.mark.parametrize("margin", [0.0, 8.0])
+@pytest.mark.parametrize("K", [256, 512, 768])
+@pytest.mark.parametrize("shape", list(BIN_CAMS))
+def test_bin_kernel_pair_q_bit_equal(dev, shape, K, margin, S, trunc):
+    """Kernel pair Q's expansion and Binnings against the eager chain on
+    the card, bit for bit: the keys and source rows, tile_count, n_isect,
+    n_overflow, n_true_overflow, tile_gauss and slot_exp_pos below each
+    count, exp_offsets; int32 indices. The capacity M holds every
+    intersection, or (`trunc`) half of them, so E = M cuts the
+    expansion."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops import rasterize as R
+    cam = Camera(**BIN_CAMS[shape])
+    params, alive = _bin_params(dev, cam)
+    N = alive.shape[0]
+    with torch.no_grad():
+        projs = _bin_projs(params, alive, cam, margin, S)
+        cfg = R.RasterConfig(max_per_tile=K, max_isect_cap=64 * N)
+        total = int(R.bin_gaussians(projs[0], cam, cfg).n_isect)
+        assert total < cfg.max_isect(N)
+        if trunc:
+            cfg = cfg._replace(max_isect_cap=total // 2)
+        M = cfg.max_isect(N)
+        db = max(min(32 - int(cam.num_tiles + 1).bit_length(), 24), 8)
+        got = R._expand_batch(projs, cam, cfg, db, M, None, 0.0, 0.0)
+        ref = R._expand_batch(projs, cam, cfg, db, M, None, 0.0, 0.0,
+                              plain=True)
+        assert got[3] == ref[3]
+        if trunc:
+            assert got[3][0] == M
+        assert got[0].dtype == ref[0].dtype == torch.int32
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        del got, ref
+        qb = R.bin_gaussians_batched(projs, cam, cfg, emit_exp=True)
+        eb = R.bin_gaussians_batched(projs, cam, cfg, emit_exp=True,
+                                     plain=True)
+    for q, e in zip(qb, eb):
+        assert q.tile_gauss.dtype == q.slot_exp_pos.dtype == torch.int32
+        assert torch.equal(q.tile_count, e.tile_count)
+        for f in ("n_isect", "n_overflow", "n_true_overflow"):
+            assert int(getattr(q, f)) == int(getattr(e, f)), f
+        k_in = (torch.arange(K, device=dev)[None, :]
+                < q.tile_count[:, None].long())
+        assert torch.equal(torch.where(k_in, q.tile_gauss, -1),
+                           torch.where(k_in, e.tile_gauss, -1))
+        assert torch.equal(torch.where(k_in, q.slot_exp_pos, -1),
+                           torch.where(k_in, e.slot_exp_pos, -1))
+        assert torch.equal(q.exp_offsets, e.exp_offsets)
+    # the shape exercises what it should: culled rows, whole-grid rows,
+    # the K cap where the tiles are crowded
+    p0 = projs[0]
+    assert not bool(p0.valid.all())
+    assert int(qb[0].tile_count.max()) == K or K > 256
+    assert int((qb[0].tile_count > 0).sum()) == cam.num_tiles
+
+
+def test_bin_counters_tracking_and_mapping(dev):
+    """One tracking binning (bin_at_pose, margin 8) and one mapping phase's
+    binning of two keyframe slots (bin_phase_slots) go through kernel pair
+    Q: one launch of each kernel a projection, `render.bin.kernel` counted
+    for each Binning and `render.bin.eager` never."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops.rasterize import RasterConfig
+    from isogs_slam_tpu_torch.slam.mapping import (MappingConfig,
+                                                   PruneConfig,
+                                                   bin_phase_slots)
+    from isogs_slam_tpu_torch.slam.tracking import bin_at_pose
+    from isogs_slam_tpu_torch.utils import spans
+    cam = Camera(**BIN_CAMS["640x480"])
+    params, alive = _bin_params(dev, cam, n=50_000)
+    quat = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    trans = torch.zeros(3, device=dev)
+    tracer = spans.Tracer()
+    _cuda.reset_launches()
+    with spans.use(tracer):
+        b = bin_at_pose(params, alive, quat, trans, 8.0, cam,
+                        RasterConfig(max_per_tile=256))
+        bins = bin_phase_slots(params, alive, quat[None].repeat(2, 1),
+                               torch.stack([trans, trans + 0.01]), [0, 1],
+                               cam, RasterConfig(max_per_tile=512),
+                               MappingConfig(40, 1e-4, 2.5e-3, 1e-3, 0.05,
+                                             1e-3, PruneConfig(
+                                                 False, 0, 0, 0, 1, 0.005,
+                                                 0.005, False, 1)),
+                               emit=True)
+    torch.cuda.synchronize()
+    assert b.tile_gauss.dtype == torch.int32 and len(bins) == 2
+    assert _cuda.LAUNCHES.get("bin_count") == 3
+    assert _cuda.LAUNCHES.get("bin_expand") == 3
+    assert tracer.counters.get("render.bin.kernel") == 3
+    assert "render.bin.eager" not in tracer.counters

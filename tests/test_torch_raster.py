@@ -67,8 +67,10 @@ def test_project_gaussians_matches_reference():
         np.testing.assert_allclose(getattr(tp, f).numpy()[v],
                                    np.asarray(getattr(jp, f))[v],
                                    rtol=1e-5, atol=1e-5, err_msg=f)
-    for f in ("rect_min", "rect_max", "rect_min_true", "rect_max_true"):
-        np.testing.assert_array_equal(getattr(tp, f).numpy()[v],
+    rects = R.tile_rects(tp, Camera(**CAM))
+    for f, got in zip(("rect_min", "rect_max", "rect_min_true",
+                       "rect_max_true"), rects):
+        np.testing.assert_array_equal(got.numpy()[v],
                                       np.asarray(getattr(jp, f))[v],
                                       err_msg=f)
 
