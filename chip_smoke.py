@@ -823,8 +823,7 @@ def subset_routes(inputs, ctx, cam, capacity, rcfg, dev):
     one a run grows to."""
     import torch
     from isogs_slam_tpu_torch.ops.rasterize import (
-        SUBSET_SEGREDUCE_MIN_ROWS, _expansion_reduce, _index_add_rows,
-        subset_uses_segreduce)
+        SUBSET_SEGREDUCE_MIN_ROWS, _fold_rows, subset_uses_segreduce)
     t0 = time.perf_counter()
     st = ctx["state"]
     K = rcfg.max_per_tile
@@ -875,24 +874,25 @@ def subset_routes(inputs, ctx, cam, capacity, rcfg, dev):
         print(f"[subset route] {name}: whole render forward + backward "
               f"scatter {got['scatter_ms']:.3f} ms, segreduce "
               f"{got['segreduce_ms']:.3f} ms")
-    # the two aggregations alone, each as its Function's backward runs it,
-    # on kernel B's rows as they cross the autograd boundary (f32), for a
-    # quarter stripe, the stripe and every tile, at the intersection
-    # capacity this configuration starts with and at the one a run grows to
+    # the two folds alone, each as the table render's backward runs it, on
+    # kernel B's bf16 rows, for a quarter stripe, the stripe and every
+    # tile, at the intersection capacity this configuration starts with
+    # and at the one a run grows to
     sizes = (("quarter stripe", sel_full[: sel_full.shape[0] // 4],
               dg_full[: sel_full.shape[0] // 4]),
              ("stripe", sel_full, dg_full),
              ("all tiles", torch.arange(cam.num_tiles, device=dev),
               inputs["map"]["dg"]))
     for name, sel, dg in sizes:
-        dg = dg[:, :K].float().contiguous()
+        dg = dg[:, :K].to(torch.bfloat16).contiguous()
         idx, pos = b.tile_gauss[sel], b.slot_exp_pos[sel]
-        ms_s = cuda_ms(lambda: _index_add_rows(dg, idx, n, live, True), 20)
+        ms_s = cuda_ms(lambda: _fold_rows(dg, "index_add", idx, None, 0, n,
+                                          live), 20)
         line = (f"[subset route] aggregation alone, {name} "
                 f"({sel.shape[0] * K} rows): index_add_ {ms_s:.4f} ms")
         for cap in (rcfg.max_isect(capacity), 14417920):
-            ms_r = cuda_ms(lambda: _expansion_reduce(
-                dg.to(torch.bfloat16), pos, b.exp_offsets, cap, n, live), 20)
+            ms_r = cuda_ms(lambda: _fold_rows(
+                dg, "segreduce", pos, b.exp_offsets, cap, n, live), 20)
             line += (f"; expansion scatter + kernel C {ms_r:.4f} ms at "
                      f"intersection capacity {cap}")
         print(line)

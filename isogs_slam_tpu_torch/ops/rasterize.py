@@ -14,9 +14,11 @@ mapping backward, the segment reduce of ops/segreduce.py:
     slots per tile; the expansion is gaussian-major, so the expansion
     position of each slot lets the backward write per-slot gradients back
     into contiguous per-Gaussian segments (no atomics, no dedup sort);
-  * mapping renders through one autograd Function spanning gather ->
-    kernel A, with backward kernel B -> duplicate-free scatter into
-    expansion order -> kernel C -> d_table;
+  * renders from the table (mapping, offline, a tile subset, the
+    tile-sharded render) go through one autograd Function spanning gather
+    -> kernel A, with backward kernel B -> one fold of its rows into
+    d_table: a duplicate-free scatter into expansion order -> kernel C, or
+    index_add_ by slot (_table_route picks);
   * tracking gathers a frozen per-slot raw table once per frame and
     re-projects it per slot each iteration (pose is the only leaf);
   * opt-in, output-preserving: `tile_cull` drops the slots of a binning
@@ -569,120 +571,77 @@ def _pad_k(gdata: torch.Tensor) -> torch.Tensor:
 
 
 class _CompositeTableFused(torch.autograd.Function):
-    """The mapping render core: table [N, 6+F] (u, v, A, B, C, op,
-    features) -> gather by tile slots -> kernel A. Backward: kernel B
-    (bf16 or f32 rows) -> duplicate-free scatter of the live columns into
-    gaussian-major expansion order -> kernel C -> d table."""
+    """The render core over the table: table [N, 6+F] (u, v, A, B, C, op,
+    features) -> gather by tile slots (+ a tile subset's virtual-row
+    shift) -> kernel A. Backward: kernel B (rows in the route's dtype) ->
+    _fold_rows -> d table. The only autograd Function that gathers table
+    rows: the cotangent never crosses a Function boundary as [T, K, 6+F]
+    f32 rows."""
 
     @staticmethod
-    def forward(ctx, table, idx, counts, slot_exp_pos, exp_offsets, m_cap,
-                F, tiles_x, sq_col, live_cols, scatter_bf16, chunk):
-        gdata = _pad_k(table[idx])
+    def forward(ctx, table, idx, counts, slots, exp_offsets, shift, route,
+                m_cap, F, tiles_x, sq_col, live_cols, chunk):
+        gdata = table[idx]
+        if shift is not None:
+            gdata = gdata + shift
+        gdata = _pad_k(gdata)
         out, final_t, saved = composite_forward(gdata, counts, F, tiles_x,
                                                 sq_col, chunk)
-        ctx.save_for_backward(gdata, counts, slot_exp_pos, exp_offsets,
+        ctx.save_for_backward(gdata, counts, slots, exp_offsets,
                               *(saved if saved is not None else ()))
-        ctx.args = (table.shape[0], m_cap, F, tiles_x, sq_col, live_cols,
-                    scatter_bf16, chunk)
+        ctx.args = (table.shape[0], route, m_cap, F, tiles_x, sq_col,
+                    live_cols, chunk)
         return out, final_t
 
     @staticmethod
     def backward(ctx, gout, dfinal):
-        gdata, counts, slot_exp_pos, exp_offsets, *saved = ctx.saved_tensors
-        n, m_cap, F, tiles_x, sq_col, live_cols, scatter_bf16, chunk = \
+        gdata, counts, slots, exp_offsets, *saved = ctx.saved_tensors
+        n, (fold, rows_dtype), m_cap, F, tiles_x, sq_col, live_cols, chunk = \
             ctx.args
-        acc = torch.bfloat16 if scatter_bf16 else torch.float32
         with spans.fine("render.composite_bwd"):
             dg = composite_backward(gdata, counts, gout, dfinal,
-                                    saved or None, F, tiles_x, sq_col, acc,
-                                    chunk)
-        K = slot_exp_pos.shape[1]
-        dtab = _expansion_reduce(dg[:, :K], slot_exp_pos, exp_offsets, m_cap,
-                                 n, live_cols)
-        return (dtab, None, None, None, None, None, None, None, None, None,
-                None, None)
+                                    saved or None, F, tiles_x, sq_col,
+                                    rows_dtype, chunk)
+        dtab = _fold_rows(dg[:, :slots.shape[1]], fold, slots, exp_offsets,
+                          m_cap, n, live_cols)
+        return (dtab,) + (None,) * 12
 
 
-@spans.fine_call("render.expansion_reduce")
-def _expansion_reduce(dg, slot_exp_pos, exp_offsets, m_cap: int, n: int,
-                      live_cols):
-    """Per-slot gradient rows dg [T, K, C] (f32 or bf16) -> d table [n, C]
-    f32: a duplicate-free scatter of the live columns into gaussian-major
-    expansion order, then kernel C over each Gaussian's contiguous
-    segment. Real slots map to distinct expansion positions; padding slots
-    all carry the sentinel m_cap, whose row is dropped. Rows no slot
-    covers (K cap, a tile subset) stay zero."""
-    C = dg.shape[2]
-    cols = list(live_cols) if live_cols is not None else list(range(C))
-    # indexing by a host list copies it to the card: a blocking copy
-    with spans.span("sync.live_cols"):
-        dsub = dg[..., cols].reshape(-1, len(cols))
-    d_exp = torch.zeros((m_cap + 1, len(cols)), dtype=dg.dtype,
-                        device=dg.device)
-    d_exp[slot_exp_pos.reshape(-1)] = dsub
-    planar = segment_reduce_rows(d_exp, exp_offsets)     # [L, n] f32
-    dtab = torch.zeros((n, C), dtype=torch.float32, device=dg.device)
-    with spans.span("sync.live_cols"):
-        dtab[:, cols] = planar.T
-    return dtab
-
-
-class _GatherRowsSegreduce(torch.autograd.Function):
-    """table[idx]; backward = _expansion_reduce of the cotangent rows
-    (cast to bf16 first when scatter_bf16)."""
-
-    @staticmethod
-    def forward(ctx, table, idx, slot_exp_pos, exp_offsets, m_cap,
-                live_cols, scatter_bf16):
-        ctx.save_for_backward(slot_exp_pos, exp_offsets)
-        ctx.args = (table.shape[0], m_cap, live_cols, scatter_bf16)
-        return table[idx]
-
-    @staticmethod
-    def backward(ctx, dg):
-        slot_exp_pos, exp_offsets = ctx.saved_tensors
-        n, m_cap, live_cols, scatter_bf16 = ctx.args
-        if scatter_bf16:
-            dg = dg.to(torch.bfloat16)
-        return (_expansion_reduce(dg, slot_exp_pos, exp_offsets, m_cap, n,
-                                  live_cols),
-                None, None, None, None, None, None)
-
-
-@spans.fine_call("render.index_add")
-def _index_add_rows(dg, idx, n: int, live_cols, scatter_bf16: bool):
-    """Per-slot gradient rows dg [T, K, C] -> d table [n, C] in dg's dtype
-    by index_add_ of the live columns (accumulated in bf16 when
-    scatter_bf16); the dead columns, which feed detached chains, stay
-    zero."""
-    cols = list(live_cols)
-    acc = torch.bfloat16 if scatter_bf16 else dg.dtype
-    # indexing by a host list copies it to the card: a blocking copy
-    with spans.span("sync.live_cols"):
-        dsub = dg[..., cols].reshape(-1, len(cols)).to(acc)
-    sub = torch.zeros((n, len(cols)), dtype=acc, device=dg.device)
-    sub.index_add_(0, idx.reshape(-1), dsub)
-    dtab = torch.zeros((n, dg.shape[-1]), dtype=dg.dtype, device=dg.device)
-    with spans.span("sync.live_cols"):
-        dtab[:, cols] = sub.to(dg.dtype)
-    return dtab
-
-
-class _GatherRowsPartialGrad(torch.autograd.Function):
-    """table[idx]; backward = _index_add_rows of the cotangent rows."""
-
-    @staticmethod
-    def forward(ctx, table, idx, live_cols, scatter_bf16):
-        ctx.save_for_backward(idx)
-        ctx.args = (table.shape[0], live_cols, scatter_bf16)
-        return table[idx]
-
-    @staticmethod
-    def backward(ctx, dg):
-        (idx,) = ctx.saved_tensors
-        n, live_cols, scatter_bf16 = ctx.args
-        return (_index_add_rows(dg, idx, n, live_cols, scatter_bf16), None,
-                None, None)
+def _fold_rows(dg, fold: str, slots, exp_offsets, m_cap: int, n: int,
+               live_cols):
+    """Kernel B's per-slot rows dg [T, K, C] (f32 or bf16) -> d table
+    [n, C] f32, the live columns only (None: all; the dead ones feed
+    detached chains and stay zero). fold "segreduce": slots [T, K] are the
+    slots' expansion positions; a duplicate-free scatter into
+    gaussian-major expansion order, then kernel C over each Gaussian's
+    contiguous segment (real slots map to distinct expansion positions;
+    padding slots all carry the sentinel m_cap, whose row is dropped).
+    fold "index_add": slots [T, K] are the slots' table rows; index_add_,
+    accumulated in dg's dtype. Rows no slot covers (K cap, a tile subset)
+    stay zero."""
+    with spans.fine("render.expansion_reduce" if fold == "segreduce"
+                    else "render.index_add"):
+        C = dg.shape[2]
+        rows = dg.reshape(-1, C)
+        cols = None
+        if live_cols is not None and tuple(live_cols) != tuple(range(C)):
+            # the column list copied to the card: a blocking copy
+            with spans.span("sync.live_cols"):
+                cols = torch.tensor(live_cols, device=dg.device)
+            rows = rows.index_select(1, cols)
+        if fold == "segreduce":
+            d_exp = rows.new_zeros((m_cap + 1, rows.shape[1]))
+            d_exp[slots.reshape(-1)] = rows
+            del rows
+            sums = segment_reduce_rows(d_exp, exp_offsets).T     # [n, L]
+            del d_exp
+        else:
+            sums = rows.new_zeros((n, rows.shape[1]))
+            sums.index_add_(0, slots.reshape(-1), rows)
+        sums = sums.float().contiguous()
+        if cols is None:
+            return sums
+        return sums.new_zeros((n, C)).index_copy_(1, cols, sums)
 
 
 def _raster_table(proj: Projected, opacity, features):
@@ -737,42 +696,53 @@ def composite(proj: Projected, opacity, features, binning: Binning,
     """Rasterize all tiles -> ([T, P, F(+1)], [T, P]). With
     cfg.bwd_mode "segreduce" (and "auto") it needs a binning made with
     emit_exp=True: its backward is the expansion-order segment reduce.
-    "scatter" gathers the rows and adds their gradients back by index.
+    "scatter" adds the rows' gradients back by index.
     live_grad_cols: table columns whose gradients survive downstream; the
-    backward scatters only those."""
-    return _composite_table(_raster_table(proj, opacity, features),
-                            features.shape[-1], binning, cam, cfg,
-                            live_grad_cols, sq_col)
+    backward folds only those."""
+    return composite_table(_raster_table(proj, opacity, features),
+                           features.shape[-1], binning, cam, cfg,
+                           live_grad_cols, sq_col)
 
 
-def _composite_table(table, F: int, binning: Binning, cam: Camera,
-                     cfg: RasterConfig, live_grad_cols=None, sq_col=None):
-    """composite() of an assembled table [N, 6+F]."""
-    live = tuple(live_grad_cols) if live_grad_cols is not None else None
-    if cfg.resolve_bwd_mode() == "scatter":
-        gdata = (table[binning.tile_gauss] if live is None else
-                 _GatherRowsPartialGrad.apply(table, binning.tile_gauss, live,
-                                              cfg.grad_scatter_bf16))
-        return composite_gdata(gdata, binning.tile_count, cam, cfg, F,
-                               sq_col=sq_col)
-    if binning.slot_exp_pos is None:
+def composite_table(table, F: int, binning: Binning, cam: Camera,
+                    cfg: RasterConfig, live_grad_cols=None, sq_col=None,
+                    sel=None, counts=None):
+    """composite() of an assembled table [N, 6+F]. With `sel` [Ts] (tile
+    ids) only those tiles, laid out on one virtual row of tiles
+    (tiles_x = Ts, _virtual_row_shift) -> ([Ts, P, F(+1)], [Ts, P]);
+    `counts` [Ts] overrides their slot counts (binning.tile_count[sel]).
+    The backward's fold and kernel B's row dtype: _table_route."""
+    has_exp = binning.slot_exp_pos is not None
+    route = _table_route(cfg, live_grad_cols,
+                         None if sel is None else sel.shape[0], has_exp)
+    seg = route[0] == "segreduce"
+    if seg and not has_exp:
         raise ValueError("composite needs a binning made with "
                          "emit_exp=True")
+    idx, slots, own_counts, shift, tiles_x = (
+        binning.tile_gauss, binning.slot_exp_pos, binning.tile_count, None,
+        cam.tiles_x)
+    if sel is not None:
+        idx, own_counts = idx[sel], own_counts[sel]
+        slots = slots[sel] if seg else None
+        shift = _virtual_row_shift(sel, cam, table.shape[1], table.dtype)
+        tiles_x = sel.shape[0]
     with spans.fine("render.composite"):
         return _CompositeTableFused.apply(
-            table, binning.tile_gauss, binning.tile_count,
-            binning.slot_exp_pos, binning.exp_offsets,
-            cfg.max_isect(table.shape[0]), F, cam.tiles_x, sq_col, live,
-            cfg.grad_scatter_bf16, cfg.tile_chunk)
+            table, idx, own_counts if counts is None else counts,
+            slots if seg else idx, binning.exp_offsets, shift, route,
+            cfg.max_isect(table.shape[0]), F, tiles_x, sq_col,
+            live_grad_cols, cfg.tile_chunk)
 
 
 @spans.fine_call("render.composite")
 def composite_gdata(gdata, counts, cam: Camera, cfg: RasterConfig, F: int,
-                    sq_col=None, bwd_bf16: bool = False):
-    """Compositing of already-assembled records gdata [T, K, 6+F]
-    (absolute-pixel u, v), differentiable wrt gdata."""
+                    sq_col=None):
+    """Compositing of records that autograd assembled, gdata [T, K, 6+F]
+    (absolute-pixel u, v; the tracking slot tables), differentiable wrt
+    gdata."""
     return composite_tiles(_pad_k(gdata), counts, F, cam.tiles_x, sq_col,
-                           bwd_bf16, cfg.tile_chunk)
+                           chunk=cfg.tile_chunk)
 
 
 def _tiles_to_image(tiles, cam: Camera):
@@ -801,10 +771,10 @@ def render(means_cam, quats_cam, log_scales, logit_opacities, features,
         cam, means2d_offset=means2d_offset, depth_col=depth_col,
         mask_opacity=binning is not None)
     if binning is None:
-        binning = bin_gaussians(
-            proj, cam, cfg, emit_exp=cfg.resolve_bwd_mode() == "segreduce")
-    tiles_out, tiles_t = _composite_table(table, table.shape[1] - 6, binning,
-                                          cam, cfg, live_grad_cols, sq_col)
+        binning = bin_gaussians(proj, cam, cfg, emit_exp=_table_route(
+            cfg, live_grad_cols, None, True)[0] == "segreduce")
+    tiles_out, tiles_t = composite_table(table, table.shape[1] - 6, binning,
+                                         cam, cfg, live_grad_cols, sq_col)
     return {"image": _tiles_to_image(tiles_out, cam),
             "final_T": _tiles_to_image(tiles_t[..., None], cam)[0],
             "radii": proj.radius, "n_isect": binning.n_isect,
@@ -855,13 +825,6 @@ def _virtual_row_shift(sel, cam: Camera, width: int, dtype):
     return shift
 
 
-class _TileGrid(NamedTuple):
-    """Stand-in for Camera inside composite_gdata: the selected tiles laid
-    out as one virtual row."""
-    num_tiles: int
-    tiles_x: int
-
-
 # Rows (t_sub * max_per_tile) from which "auto" sends the subset render's
 # backward through the expansion scatter + kernel C instead of index_add_:
 # the reference's crossover (isogs_slam_tpu/ops/rasterize.py), so the
@@ -882,13 +845,38 @@ SUBSET_SEGREDUCE_MIN_ROWS = 256 * 1024
 
 
 def subset_uses_segreduce(cfg: RasterConfig, t_sub: int) -> bool:
-    """Which backward aggregation the subset render takes (shared by
-    render_tiles_subset and the caller's emit_exp decision): an explicit
-    bwd_mode decides; "auto" applies the row-count crossover."""
+    """Whether the backward of a subset render with live columns folds
+    through the expansion positions and kernel C (see _table_route): an
+    explicit bwd_mode decides; "auto" applies the row-count crossover."""
     if cfg.bwd_mode == "segreduce":
         return True
     return (cfg.resolve_bwd_mode() == "segreduce"
             and t_sub * cfg.max_per_tile >= SUBSET_SEGREDUCE_MIN_ROWS)
+
+
+def _table_route(cfg: RasterConfig, live, t_sub: int | None,
+                 has_exp: bool):
+    """The table render's backward: (fold, dtype of kernel B's rows), for
+    the live columns `live` (None: all), a tile subset of t_sub tiles
+    (None: the whole image) and a binning with or without expansion
+    positions. A binning site asks it with has_exp=True whether to
+    emit_exp. The fold is "segreduce" (_fold_rows through the expansion
+    positions and kernel C) or "index_add": on the whole image by
+    cfg.bwd_mode; on a subset with live columns by subset_uses_segreduce,
+    without them (the tile-sharded render) by cfg.bwd_mode; a subset
+    without expansion positions takes index_add. The rows are bf16 under
+    cfg.grad_scatter_bf16 where live columns are given or on the whole
+    image's segreduce (C accumulates in f32), else f32."""
+    if t_sub is None:
+        seg = cfg.resolve_bwd_mode() == "segreduce"
+    elif live is not None:
+        seg = has_exp and subset_uses_segreduce(cfg, t_sub)
+    else:
+        seg = has_exp and cfg.resolve_bwd_mode() == "segreduce"
+    bf16 = cfg.grad_scatter_bf16 and (live is not None
+                                      or (seg and t_sub is None))
+    return ("segreduce" if seg else "index_add",
+            torch.bfloat16 if bf16 else torch.float32)
 
 
 def image_to_tiles(img, cam: Camera):
@@ -928,38 +916,18 @@ def render_tiles_subset(means_cam, quats_cam, log_scales, logit_opacities,
                         means2d_offset=None):
     """Differentiable fused rgb + z (+ z^2) render of only the tiles in
     sel [T_sub] (tile ids). Returns (tiles_out [T_sub, P, 5] with channels
-    (r, g, b, z, z^2), final_t [T_sub, P], aux). The backward adds the
-    per-slot gradients into the table either by index (index_add_ of the
-    live columns) or, when subset_uses_segreduce says so and the binning
+    (r, g, b, z, z^2), final_t [T_sub, P], aux). The backward folds the
+    per-slot gradients into the table by index (index_add_ of the live
+    columns) or, when subset_uses_segreduce says so and the binning
     carries expansion positions, through the subset's expansion positions
-    and kernel C. means2d_offset: see project_gaussians."""
+    and kernel C (_table_route). means2d_offset: see project_gaussians."""
     # frozen tile lists may reference Gaussians culled at this pose
     table, proj = project_table(
         means_cam, quats_cam, log_scales, logit_opacities, rgb_colors, alive,
         cam, means2d_offset=means2d_offset, depth_col=True,
         mask_opacity=True)
-    idx = binning.tile_gauss[sel]                          # [T_sub, K]
-    counts = binning.tile_count[sel]
-    t_sub = sel.shape[0]
-    live = tuple(live_grad_cols) if live_grad_cols is not None else None
-    if live is None:
-        gdata = table[idx]
-    elif (subset_uses_segreduce(cfg, t_sub)
-          and binning.slot_exp_pos is not None):
-        gdata = _GatherRowsSegreduce.apply(
-            table, idx, binning.slot_exp_pos[sel], binning.exp_offsets,
-            cfg.max_isect(table.shape[0]), live, cfg.grad_scatter_bf16)
-    else:
-        gdata = _GatherRowsPartialGrad.apply(table, idx, live,
-                                             cfg.grad_scatter_bf16)
-    gdata = gdata + _virtual_row_shift(sel, cam, gdata.shape[-1],
-                                       gdata.dtype)
-    grid = _TileGrid(num_tiles=t_sub, tiles_x=t_sub)
-    # the next backward step casts the rows to bf16 anyway on either
-    # route, so kernel B emits them in bf16 directly
-    bwd_bf16 = cfg.grad_scatter_bf16 and live is not None
-    out, final_t = composite_gdata(gdata, counts, grid, cfg, 4, sq_col=3,
-                                   bwd_bf16=bwd_bf16)
+    out, final_t = composite_table(table, 4, binning, cam, cfg,
+                                   live_grad_cols, sq_col=3, sel=sel)
     return out, final_t, {"radii": proj.radius}
 
 
@@ -1050,9 +1018,8 @@ def render_rgbd_sil_slots_subset(raw_sub, counts_sub, sel, cam_quat,
     channels (r, g, b, z, z^2), silhouette [Ts, P]) on the same virtual
     single-row grid."""
     gdata = _slot_gdata(raw_sub, cam_quat, cam_trans, cam, tile_ids=sel)
-    t_sub = raw_sub.shape[0]
     shift = _virtual_row_shift(sel, cam, gdata.shape[-1], gdata.dtype)
-    grid = _TileGrid(num_tiles=t_sub, tiles_x=t_sub)
-    out, final_t = composite_gdata(gdata + shift, counts_sub, grid, cfg, 4,
-                                   sq_col=3)
+    with spans.fine("render.composite"):
+        out, final_t = composite_tiles(_pad_k(gdata + shift), counts_sub, 4,
+                                       len(sel), 3, chunk=cfg.tile_chunk)
     return out, 1.0 - final_t

@@ -18,7 +18,7 @@ import torch
 from ..core import optim
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams, MapState
-from ..ops.rasterize import RasterConfig
+from ..ops.rasterize import MAPPING_LIVE_COLS, RasterConfig, _table_route
 from ..slam.losses import LossConfig, compute_loss
 from ..slam.mapping import (MappingConfig, bin_phase_slots,
                             build_phase_iso, merge_max_radius,
@@ -170,9 +170,10 @@ class MultiviewMapPhase:
         for r in range(B):
             for s in step_slots[:, r].tolist():
                 first.setdefault(s, r)
+        emit = _table_route(self.rcfg, MAPPING_LIVE_COLS, None,
+                            True)[0] == "segreduce"
         bins = bin_phase_slots(p0, alive0, kf_quats, kf_transl, mine,
-                               self.cam, self.rcfg, self.mcfg,
-                               self.rcfg.resolve_bwd_mode() == "segreduce")
+                               self.cam, self.rcfg, self.mcfg, emit)
         stats = phase_bin_stats([b for s, b in bins.items()
                                  if first[s] == mesh.rank],
                                 alive0.device)

@@ -7,18 +7,18 @@ tiles through kernel A on the virtual single-row grid of the tile-subset
 renders (tiles_x = the shard's tile count, u and v shifted by the shard's
 origins). The tile axis is padded to a multiple of the mesh size with
 empty tiles. The image and final_T are all-gathered. Backward: each rank
-runs kernel B on its own tiles and writes the slot gradients into the
-table's rows through the expansion positions and kernel C; the partial row
-gradients are all-reduced.
+runs kernel B on its own tiles and folds the slot gradients into the
+table's rows (ops/rasterize.py::composite_table: through the expansion
+positions and kernel C, in f32); the partial row gradients are
+all-reduced.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.camera import Camera
-from ..ops.rasterize import (RasterConfig, _GatherRowsSegreduce, _TileGrid,
-                             _tiles_to_image, _virtual_row_shift,
-                             bin_gaussians, composite_gdata, project_table)
+from ..ops.rasterize import (RasterConfig, bin_gaussians, composite_table,
+                             project_table, tiles_to_image)
 from .dist import (Mesh, all_gather_shards_grad, make_mesh,
                    replicated_inputs, shard_range)
 
@@ -53,19 +53,14 @@ def render_tiles_sharded(mesh: Mesh, means_cam, quats_cam, log_scales,
         sel = torch.where(real, ids, torch.zeros_like(ids))
         counts = torch.where(real, binning.tile_count[sel],
                              torch.zeros_like(binning.tile_count[sel]))
-        gdata = _GatherRowsSegreduce.apply(
-            table, binning.tile_gauss[sel], binning.slot_exp_pos[sel],
-            binning.exp_offsets, cfg.max_isect(table.shape[0]), None, False)
-        gdata = gdata + _virtual_row_shift(sel, cam, gdata.shape[-1],
-                                           gdata.dtype)
-        out, final_t = composite_gdata(gdata, counts,
-                                       _TileGrid(num_tiles=per, tiles_x=per),
-                                       cfg, F)
+        out, final_t = composite_table(table, F, binning, cam, cfg, sel=sel,
+                                       counts=counts)
     else:
         # a rank outside the mesh: no tiles; zeros keep the graph
         out = table.new_zeros((per, 256, F)) + 0.0 * table.sum()
         final_t = table.new_zeros((per, 256))
     tiles_out = all_gather_shards_grad(out, mesh)[:T]
-    tiles_t = all_gather_shards_grad(final_t, mesh)[:T]
-    return (_tiles_to_image(tiles_out, cam),
-            _tiles_to_image(tiles_t[..., None], cam)[0])
+    tiles_t = all_gather_shards_grad(final_t, mesh)[:T, :, None]
+    h, w = cam.height, cam.width
+    return (tiles_to_image(tiles_out, cam.tiles_x)[:, :h, :w],
+            tiles_to_image(tiles_t, cam.tiles_x)[0, :h, :w])

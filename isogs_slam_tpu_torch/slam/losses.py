@@ -65,32 +65,16 @@ class LossOutputs(NamedTuple):
 @spans.fine_call("loss.photometric")
 def _photometric_terms(im, depth, silhouette, depth_sq, gt_im, gt_depth,
                        lcfg: LossConfig):
-    """Masks + RGB/depth loss terms. Returns (loss_im, loss_depth, mask).
-
-    Keep in step with compute_loss_slots_subset below, which restates this
-    masking / L1 sequence in tile space ([Ts, P, C] with a valid_px mask
-    and a sum scale); tests/test_torch_subset.py holds the two equal."""
+    """Masks + RGB/depth loss terms. Returns (loss_im, loss_depth, mask)."""
     tracking = lcfg.tracking
     if tracking and lcfg.sil_norm_render:
         s = torch.clamp(silhouette, min=1e-6)[None]
         im = im / s
         depth = depth / s
         depth_sq = depth_sq / s
-    uncertainty = (depth_sq - depth * depth).detach()
-    presence_sil_mask = silhouette > lcfg.sil_thres
-
-    nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
-    if lcfg.ignore_outlier_depth_loss:
-        with spans.fine("loss.outlier_mask"):
-            depth_error = torch.abs(gt_depth - depth) * (gt_depth > 0)
-            mask = ((depth_error < 10 * _median(depth_error))
-                    & (gt_depth > 0))
-    else:
-        mask = gt_depth > 0
-    mask = mask & nan_mask
+    mask = _loss_mask(depth, depth_sq, gt_depth, lcfg)
     if tracking and lcfg.use_sil_for_loss:
-        mask = mask & presence_sil_mask[None]
-    mask = mask.detach()
+        mask = mask & (silhouette > lcfg.sil_thres)[None]
 
     zero_d = torch.zeros_like(depth)
     d_abs = torch.abs(gt_depth - depth)
@@ -113,6 +97,30 @@ def _photometric_terms(im, depth, silhouette, depth_sq, gt_im, gt_depth,
     else:
         loss_im = 0.8 * im_abs.mean() + 0.2 * (1.0 - calc_ssim(im, gt_im))
     return loss_im, loss_depth, mask
+
+
+def _loss_mask(depth, depth_sq, gt_depth, lcfg: LossConfig, px_mask=None):
+    """The detached mask of the pixels a loss counts, in the caller's
+    layout (the image's [1, H, W], a tile subset's [Ts, P]): gt depth
+    present, the rendered depth and its uncertainty not NaN, inside
+    px_mask where given and, under lcfg.ignore_outlier_depth_loss, a depth
+    error under 10x the median error over every entry (zero outside
+    px_mask)."""
+    uncertainty = (depth_sq - depth * depth).detach()
+    nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
+    if lcfg.ignore_outlier_depth_loss:
+        with spans.fine("loss.outlier_mask"):
+            depth_error = torch.abs(gt_depth - depth) * (gt_depth > 0)
+            if px_mask is not None:
+                depth_error = depth_error * px_mask
+            mask = ((depth_error < 10 * _median(depth_error))
+                    & (gt_depth > 0))
+    else:
+        mask = gt_depth > 0
+    mask = mask & nan_mask
+    if px_mask is not None:
+        mask = mask & px_mask
+    return mask.detach()
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -159,11 +167,7 @@ def compute_loss_slots_subset(raw_sub, counts_sub, sel, cam_quat, cam_trans,
     (tracking.tile_subsample > 1). gt_tiles [Ts, P, 4] = (r, g, b, depth)
     of the selected tiles; valid_px [Ts, P] in-image mask; `scale`
     (~ num_tiles / Ts) brings the masked sums to full-image magnitude, so
-    depth_loss_thres and the best-candidate metric keep their meaning.
-
-    Keep in step with _photometric_terms above: the layouts differ
-    ([Ts, P, C] + valid_px against [C, H, W]), so the sequence is restated
-    rather than shared."""
+    depth_loss_thres and the best-candidate metric keep their meaning."""
     assert lcfg.tracking
     out, silhouette = render_rgbd_sil_slots_subset(
         raw_sub, counts_sub, sel, cam_quat, cam_trans, cam, rcfg)
@@ -178,20 +182,9 @@ def compute_loss_slots_subset(raw_sub, counts_sub, sel, cam_quat, cam_trans,
         im = im / s[..., None]
         depth = depth / s
         depth_sq = depth_sq / s
-    uncertainty = (depth_sq - depth * depth).detach()
-    nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
-    if lcfg.ignore_outlier_depth_loss:
-        with spans.fine("loss.outlier_mask"):
-            depth_error = (torch.abs(gt_depth - depth) * (gt_depth > 0)
-                           * valid_px)
-            mask = ((depth_error < 10 * _median(depth_error))
-                    & (gt_depth > 0))
-    else:
-        mask = gt_depth > 0
-    mask = mask & nan_mask & valid_px
+    mask = _loss_mask(depth, depth_sq, gt_depth, lcfg, valid_px)
     if lcfg.use_sil_for_loss:
         mask = mask & (silhouette > lcfg.sil_thres)
-    mask = mask.detach()
 
     d_abs = torch.abs(gt_depth - depth)
     loss_depth = (torch.sum(torch.where(mask, d_abs,
@@ -273,15 +266,7 @@ def compute_loss_subsampled(params: GaussianParams, alive, cam_quat,
     gt_depth = gt_tiles[..., 3]
 
     core_px = core_tiles[:, None] & valid_px              # [Ts, P]
-    uncertainty = (depth_sq - depth * depth).detach()
-    nan_mask = (~torch.isnan(depth)) & (~torch.isnan(uncertainty))
-    mask = (gt_depth > 0) & nan_mask & core_px
-    if lcfg.ignore_outlier_depth_loss:
-        with spans.fine("loss.outlier_mask"):
-            depth_error = (torch.abs(gt_depth - depth) * (gt_depth > 0)
-                           * core_px)
-            mask = mask & (depth_error < 10 * _median(depth_error))
-    mask = mask.detach()
+    mask = _loss_mask(depth, depth_sq, gt_depth, lcfg, core_px)
 
     d_abs = torch.abs(gt_depth - depth)
     if lcfg.use_l1:

@@ -27,9 +27,9 @@ from ..core import optim
 from ..core.camera import Camera
 from ..core.gaussians import GaussianParams, MapState, prune
 from ..ops.iso_loss import IsoKnnPool, build_iso_knn_pool
-from ..ops.rasterize import (RasterConfig, bin_gaussians,
-                             bin_gaussians_batched, image_to_tiles,
-                             project_gaussians, subset_uses_segreduce,
+from ..ops.rasterize import (MAPPING_LIVE_COLS, RasterConfig, _table_route,
+                             bin_gaussians, bin_gaussians_batched,
+                             image_to_tiles, project_gaussians,
                              tile_pixel_validity)
 from ..ops.spatial_hash import build_hash_grid, default_cell_size
 from ..utils import spans
@@ -306,16 +306,16 @@ def map_frame(state: MapState, kf_colors_u8, kf_depths, kf_quats, kf_transl,
     polish = (min(int(mcfg.exact_polish_iters), mcfg.num_iters)
               if subsample else 0)
     n_sub = len(iter_slots) - polish if subsample else 0
+    # the expansion positions are kept only when a backward will use them:
+    # the whole image's (with a stripe, the closing exact iterations'), the
+    # stripe's (by the row crossover)
+    emit = _table_route(rcfg, MAPPING_LIVE_COLS, None,
+                        True)[0] == "segreduce"
     if subsample:
         rows_core, rows_w, n_stripes, t_sub = stripe_shape(
             cam.tiles_y, cam.tiles_x, mcfg.tile_subsample)
-        # the expansion positions are kept only when a backward will use
-        # them: the stripe's above the row crossover, the closing exact
-        # iterations' always
-        emit = subset_uses_segreduce(rcfg, t_sub) or (
-            polish > 0 and rcfg.resolve_bwd_mode() == "segreduce")
-    else:
-        emit = rcfg.resolve_bwd_mode() == "segreduce"
+        emit = (polish > 0 and emit) or _table_route(
+            rcfg, MAPPING_LIVE_COLS, t_sub, True)[0] == "segreduce"
 
     with torch.no_grad():
         with spans.fine("mapping.bin"):

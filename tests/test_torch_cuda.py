@@ -236,6 +236,56 @@ def test_fused_render_partial_tiles(dev, K):
         assert float((a - b).abs().max()) / float(a.abs().max()) < 1e-4
 
 
+@pytest.mark.parametrize("K", [512, 1000])
+def test_table_fold_kernel_c_matches_former_formulation(dev, K):
+    """The mapping route's one fold on the card (kernels A, B and C, every
+    column live, bf16 rows), at a K that is and is not a multiple of the
+    128-slot padding: the table gradient is torch.equal to the former
+    formulation restated here (kernel B's rows gathered by a host list of
+    the columns, scattered into d_exp, kernel C, written back into a zero
+    table)."""
+    from isogs_slam_tpu_torch.core.camera import Camera
+    from isogs_slam_tpu_torch.ops import rasterize as R
+    from isogs_slam_tpu_torch.ops.composite import (composite_backward,
+                                                    composite_forward)
+    rng = np.random.default_rng(4)
+    n = 1500
+    means = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    means[:, 2] += 2.5
+    arrs = [means, rng.normal(0, 1, (n, 4)),
+            np.log(rng.uniform(0.02, 0.1, (n, 3))),
+            rng.uniform(-2, 3, (n, 1)), rng.uniform(0, 1, (n, 3))]
+    cam = Camera(width=88, height=52, fx=80.0, fy=80.0, cx=43.5, cy=25.5)
+    cfg = R.RasterConfig(max_per_tile=K)
+    ps = [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrs]
+    with torch.no_grad():
+        table, proj = R.project_table(
+            *ps, torch.ones(n, dtype=torch.bool, device=dev), cam,
+            depth_col=True)
+        b = R.bin_gaussians(proj, cam, cfg, emit_exp=True)
+    table.requires_grad_(True)
+    wo = torch.randn((cam.num_tiles, 256, 5), device=dev)
+    wt = torch.randn((cam.num_tiles, 256), device=dev)
+    out, ft = R.composite_table(table, 4, b, cam, cfg, R.MAPPING_LIVE_COLS,
+                                sq_col=3)
+    (got,) = torch.autograd.grad((out * wo).sum() + (ft * wt).sum(), table)
+
+    gdata = R._pad_k(table.detach()[b.tile_gauss])
+    _, _, saved = composite_forward(gdata, b.tile_count, 4, cam.tiles_x, 3)
+    dg = composite_backward(gdata, b.tile_count, wo, wt, saved, 4,
+                            cam.tiles_x, 3, torch.bfloat16)
+    cols = list(R.MAPPING_LIVE_COLS)
+    dsub = dg[:, :K][..., cols].reshape(-1, len(cols))
+    d_exp = torch.zeros((cfg.max_isect(n) + 1, len(cols)),
+                        dtype=torch.bfloat16, device=dev)
+    d_exp[b.slot_exp_pos.reshape(-1)] = dsub
+    want = torch.zeros(table.shape, device=dev)
+    want[:, cols] = segment_reduce_rows_cuda(d_exp, b.exp_offsets).T
+    torch.cuda.synchronize()
+    assert float(got.abs().max()) > 0
+    assert torch.equal(got, want)
+
+
 def test_fused_render_cuda_matches_cpu(dev):
     """The whole fused mapping render (kernel A forward; kernels B and C in
     the backward) on the card against the same render on the CPU."""

@@ -22,8 +22,10 @@ from isogs_slam_tpu.ops.segreduce import LANES, W, segment_reduce_rows
 from isogs_slam_tpu.utils.transforms import transform_to_frame as j_ttf
 from isogs_slam_tpu_torch.core.camera import Camera
 from isogs_slam_tpu_torch.ops import rasterize as R
-from isogs_slam_tpu_torch.ops.composite import composite_tiles
+from isogs_slam_tpu_torch.ops.composite import (composite_backward,
+                                                composite_tiles)
 from isogs_slam_tpu_torch.ops.segreduce import segment_reduce_rows_plain
+from isogs_slam_tpu_torch.utils import spans
 from isogs_slam_tpu_torch.utils.transforms import transform_to_frame
 
 CAM = dict(width=64, height=48, fx=60.0, fy=60.0, cx=32.0, cy=24.0)
@@ -264,6 +266,49 @@ def test_render_bf16_scatter_grads_close():
         a = np.asarray(a)
         rel = np.linalg.norm(b.numpy() - a) / (np.linalg.norm(a) + 1e-12)
         assert rel < 1e-2, rel
+
+
+@pytest.mark.parametrize("live", ["mapping", "tracking"])
+def test_table_fold_matches_former_formulation(live):
+    """The mapping route's one fold on kernel B's bf16 rows (plain B and
+    C): the table gradient is torch.equal to the former formulation,
+    restated here (kernel B's rows gathered by a host list of the live
+    columns, scattered into d_exp, segment_reduce_rows_plain, written back
+    into a zero table), and the column list reaches the card only where
+    some columns are dead: no sync.live_cols span for the mapping render's
+    every column, one for tracking's."""
+    cols = R.MAPPING_LIVE_COLS if live == "mapping" else R.TRACKING_LIVE_COLS
+    arrs, alive = _scene(seed=7)
+    cam = Camera(**CAM)
+    cfg = R.RasterConfig(max_per_tile=128)
+    with torch.no_grad():
+        table, proj = R.project_table(*_t(arrs), torch.tensor(alive), cam,
+                                      depth_col=True)
+        b = R.bin_gaussians(proj, cam, cfg, emit_exp=True)
+    table.requires_grad_(True)
+    rng = np.random.default_rng(2)
+    wo = torch.tensor(rng.normal(size=(cam.num_tiles, 256, 5)),
+                      dtype=torch.float32)
+    wt = torch.tensor(rng.normal(size=(cam.num_tiles, 256)),
+                      dtype=torch.float32)
+    tr = spans.Tracer()
+    with spans.use(tr):
+        out, ft = R.composite_table(table, 4, b, cam, cfg, cols, sq_col=3)
+        (got,) = torch.autograd.grad((out * wo).sum() + (ft * wt).sum(),
+                                     table)
+    assert tr.totals().get("sync.live_cols", (0, 0))[1] == (
+        0 if live == "mapping" else 1)
+
+    gdata = R._pad_k(table.detach()[b.tile_gauss])
+    dg = composite_backward(gdata, b.tile_count, wo, wt, None, 4,
+                            cam.tiles_x, 3, torch.bfloat16, cfg.tile_chunk)
+    dsub = dg[:, :128][..., list(cols)].reshape(-1, len(cols))
+    m_cap = cfg.max_isect(table.shape[0])
+    d_exp = torch.zeros((m_cap + 1, len(cols)), dtype=torch.bfloat16)
+    d_exp[b.slot_exp_pos.reshape(-1)] = dsub
+    want = torch.zeros(table.shape)
+    want[:, list(cols)] = segment_reduce_rows_plain(d_exp, b.exp_offsets).T
+    assert torch.equal(got, want)
 
 
 def test_slot_render_and_pose_grads_match_reference():

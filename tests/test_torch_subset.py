@@ -421,6 +421,72 @@ def test_compute_loss_slots_subset_matches_reference(sub, outlier):
                                        err_msg=f)
 
 
+@pytest.mark.parametrize("loss", ["slots_subset", "stripe"])
+def test_subset_losses_outlier_median_is_mean_of_middles(loss, monkeypatch):
+    """The tile-subset tracking loss and the stripe loss keep a depth
+    error under 10x the median of the masked errors (zero outside the
+    pixel mask) as the whole image does, the median of an even count being
+    the mean of the two middle values: on planted renders (the losses'
+    own steps run on them) with far outliers and holes, a pixel planted
+    between 10x the lower middle value and 10x the mean of the two is
+    kept, and mask_frac counts exactly the pixels that rule keeps."""
+    cam = Camera(**CAM)
+    sel = torch.arange(2 * cam.tiles_x)                 # 3584 px: even
+    ts, n = sel.shape[0], sel.shape[0] * 256
+    valid = torch.tensor(R.tile_pixel_validity(cam))[sel]
+    rng = np.random.default_rng(5)
+    depth = torch.tensor(rng.uniform(1.0, 3.0, (ts, 256)), dtype=torch.float32)
+    gt_d = depth + torch.tensor(rng.normal(0.0, 0.05, (ts, 256)),
+                                dtype=torch.float32)
+    gt_d.view(-1)[::13] = 0.0                           # holes
+    gt_d.view(-1)[5::97] += 100.0                       # far outliers
+    out = torch.cat([torch.tensor(rng.uniform(size=(ts, 256, 3)),
+                                  dtype=torch.float32),
+                     depth[..., None], (depth * depth)[..., None]], dim=-1)
+    gt_tiles = torch.cat([torch.rand((ts, 256, 3)), gt_d[..., None]], -1)
+    if loss == "stripe":
+        core = torch.arange(ts) < 11
+        px = core[:, None] & valid
+    else:
+        px = valid
+
+    def errors():
+        return torch.abs(gt_d - depth) * (gt_d > 0) * px
+
+    e = torch.sort(errors().reshape(-1))
+    lo = 10 * e.values[n // 2 - 1]
+    mid = 10 * (0.5 * (e.values[n // 2 - 1] + e.values[n // 2]))
+    assert lo < mid
+    j = next(int(i) for i in e.indices[n // 2 + 1:]
+             if px.view(-1)[i] and gt_d.view(-1)[i] > 0
+             and gt_d.view(-1)[i] < 50)
+    gt_d.view(-1)[j] = depth.view(-1)[j] + (lo + mid) / 2
+    gt_tiles[..., 3] = gt_d
+    err = errors()
+    keep = (err < mid) & (gt_d > 0) & px
+    assert bool(keep.view(-1)[j]) and bool(err.view(-1)[j] >= lo)
+    assert int(((err >= mid) & (gt_d > 0) & px).sum()) >= 20
+
+    if loss == "stripe":
+        monkeypatch.setattr(L, "render_tiles_subset", lambda *a, **k: (
+            out, None, {"radii": torch.zeros(1, dtype=torch.int32)}))
+        arrs, alive, _ = _scene()
+        got = L.compute_loss_subsampled(
+            _tparams(arrs), torch.tensor(alive),
+            *[torch.tensor(x) for x in IDENT], gt_tiles, valid, core, sel,
+            None, cam, R.RasterConfig(), L.LossConfig(
+                **dict(MAP_LOSS, ignore_outlier_depth_loss=True)))
+    else:
+        monkeypatch.setattr(L, "render_rgbd_sil_slots_subset",
+                            lambda *a: (out, torch.ones((ts, 256))))
+        got = L.compute_loss_slots_subset(
+            None, None, sel, None, None, gt_tiles, valid, cam,
+            R.RasterConfig(), L.LossConfig(
+                **dict(TRACK_LOSS, ignore_outlier_depth_loss=True)))
+    assert float(got.mask_frac) == float(
+        keep.sum().float() / px.sum().float())
+
+
 # ------------------------------------------------------------------- Adam
 def test_lazy_adam_matches_reference():
     """optim.step in lazy mode over four steps with rows that get no
@@ -512,7 +578,7 @@ def test_map_frame_stripe_through_segreduce_matches_reference(monkeypatch):
     both packages and the reference's "auto" resolves as on its kernel
     backend, so both send the stripe iterations' backward through the
     expansion scatter + segment reduce (the port: kernel C's plain
-    version, counted here), on the reference's own stripes, two frames
+    version; the fold's calls counted here), on the reference's own stripes, two frames
     of keyframes; held as test_map_frame_subset_matches_reference."""
     _, _, _, t_sub = M.stripe_shape(H // 16, W // 16, 2)
     rows = t_sub * MK
@@ -525,16 +591,16 @@ def test_map_frame_stripe_through_segreduce_matches_reference(monkeypatch):
     assert R.subset_uses_segreduce(cfg, t_sub)
     assert not R.subset_uses_segreduce(cfg, t_sub - 1)
     calls = []
-    apply = R._GatherRowsSegreduce.apply
-    monkeypatch.setattr(R._GatherRowsSegreduce, "apply",
-                        lambda *a: calls.append(a[1].shape[0]) or apply(*a))
+    fold = R._fold_rows
+    monkeypatch.setattr(R, "_fold_rows", lambda dg, route, *a: calls.append(
+        (dg.shape[0], route)) or fold(dg, route, *a))
     # another tile_chunk (no numeric effect) keeps the reference's jit from
     # reusing a program traced before the patches
     _map_frame_subset_both(
         JR.RasterConfig(backend="xla", tile_chunk=128, **RKW_MAP), cfg,
         False)
     # the stripe iterations' renders took the segment-reduce route
-    assert calls.count(t_sub) == N_ITERS - POLISH, calls
+    assert calls.count((t_sub, "segreduce")) == N_ITERS - POLISH, calls
 
 
 
