@@ -28,7 +28,9 @@ before the result line):
      (tile_subsample 8: T = 600 on a virtual row) at K = 512, 768, 1024; the
      tile-to-image crop at four cameras; segment reduce at N = capacity on
      all tiles' rows, on a stripe's rows only (tile_subsample 4 and 8) and
-     on all tiles' rows at 640x480, 876x584 and 960x720; also the plain
+     on all tiles' rows at 640x480, 876x584 and 960x720; kernel K (the iso
+     pool's hash KNN: 32,768 queries, k 16, cap 24) on maps of 524,288
+     and 1,245,184 rows against its eager chain; also the plain
      PyTorch form of the backward kernel's algebra against autograd
      through the plain forward; time kernel, plain version and (segment
      reduce) torch.segment_reduce;
@@ -229,7 +231,8 @@ SOURCES = {"composite_fwd": "isogs_slam_tpu_torch/csrc/composite.cu",
            "project_fwd": "isogs_slam_tpu_torch/csrc/project.cu",
            "project_bwd": "isogs_slam_tpu_torch/csrc/project.cu",
            "bin_count": "isogs_slam_tpu_torch/csrc/bin.cu",
-           "bin_expand": "isogs_slam_tpu_torch/csrc/bin.cu"}
+           "bin_expand": "isogs_slam_tpu_torch/csrc/bin.cu",
+           "knn_hash": "isogs_slam_tpu_torch/csrc/knn.cu"}
 REPLACES = {
     "composite_fwd": "isogs_slam_tpu/ops/pallas_composite.py:498",
     "composite_bwd": "isogs_slam_tpu/ops/pallas_composite.py:539",
@@ -240,7 +243,9 @@ REPLACES = {
     "project_bwd": "isogs_slam_tpu/ops/rasterize.py:155",
     # plain XLA too: bin_gaussians' fixed-capacity expansion
     "bin_count": "isogs_slam_tpu/ops/rasterize.py:398",
-    "bin_expand": "isogs_slam_tpu/ops/rasterize.py:398"}
+    "bin_expand": "isogs_slam_tpu/ops/rasterize.py:398",
+    # plain XLA too: the hash grid's K-nearest query
+    "knn_hash": "isogs_slam_tpu/ops/spatial_hash.py:130"}
 # bytes a row kernel P moves in the mapping render's call (rgb + z, masked
 # opacity, a means2d offset): forward reads means 12, quats 16, scales 12,
 # logit 4, rgb 12, alive 1, offset 8 and writes the table 40, radius 4,
@@ -258,6 +263,18 @@ BIN_COUNT_BYTES = 29
 BIN_EXPAND_ROW_BYTES, BIN_EXPAND_ENTRY_BYTES = 37, 12
 # the mapping phase's slots at replica.orbit's peak (N = 2 x capacity)
 BIN_SLOTS = 7
+# bytes kernel K moves at the least: the grid's order 8, cell_of 8 and
+# points 12 a row, starts and ends 16 a bucket, the queries 12 a query and
+# the outputs (d2 4, row 8) k a query, each read or written once
+KNN_ROW_BYTES, KNN_BUCKET_BYTES, KNN_QUERY_BYTES, KNN_OUT_BYTES = (28, 16,
+                                                                   12, 12)
+# kernel K's shapes: the iso pool (32,768 queries, k 16, cap 24) on a map
+# at each cell's capacity (tum.handheld, replica.orbit)
+KNN_Q, KNN_K, KNN_CAP = 32768, 16, 24
+KNN_SHAPES = (("knn_hash", 524_288), ("knn_hash replica", 1_245_184))
+# paths that run no iso term (the offline trainer and post-SLAM
+# optimization), so kernel K need not launch there
+ISO_FREE_PATHS = ("post-opt", "offline", "scannetpp post-opt")
 
 
 def phase(name, t0):
@@ -711,6 +728,74 @@ def bin_kernels(ctx, frames, cam, rcfg, rcfg_track, dev, results):
                 print(f"[bin {tag}] {name} N {n}: {ms:.4f} ms (plain "
                       f"{pms:.4f} ms, bound {bms:.4f} ms by {by})")
             del projs, offs, qz, keys, srcs, pr
+    torch.cuda.synchronize()
+
+
+def knn_kernels(dev, results):
+    """Kernel K at each cell's shape (KNN_SHAPES): the iso pool's queries
+    on a map of C rows, 57% alive on a wavy 2 x 2 m surface with 3-6 mm
+    scales (a few rows a cell). Distances against the eager chain on the
+    card (max_abs_err over the found neighbours; 0 = bit-equal) and the
+    rows (tied and missing neighbours as the card's topk gives them), both
+    times and memory rises, the launches of one query each and the byte
+    bound."""
+    import torch
+    from isogs_slam_tpu_torch.ops import spatial_hash as SH
+    from isogs_slam_tpu_torch.ops.iso_loss import sample_pool_queries
+    for key, C in KNN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(C)
+        uv = torch.rand((C, 2), generator=g, device=dev) * 2 - 1
+        z = 0.1 * torch.sin(3 * uv[:, 0]) * torch.cos(2 * uv[:, 1])
+        means = torch.stack([uv[:, 0], uv[:, 1], z], -1)
+        log_scales = torch.log(0.003 + 0.003 * torch.rand(
+            (C, 3), generator=g, device=dev))
+        alive = torch.arange(C, device=dev) < int(0.57 * C)
+        queries = means[sample_pool_queries(alive, KNN_Q, g)]
+        grid = SH.build_hash_grid(means, alive,
+                                  SH.default_cell_size(log_scales, alive))
+
+        def kernel():
+            return SH.knn_hash_cuda(grid, queries, KNN_K, KNN_CAP)
+
+        def eager():
+            return SH.knn_hash_plain(grid, queries, KNN_K, KNN_CAP)
+
+        rises = []
+        for fn in (kernel, eager):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn()
+            torch.cuda.synchronize()
+            rises.append((torch.cuda.max_memory_allocated() - base) / 2**20)
+            del out
+        (d2, idx), (d2_p, idx_p) = kernel(), eager()
+        fin = torch.isfinite(d2_p)
+        same = torch.equal(d2.view(torch.int32), d2_p.view(torch.int32))
+        err = float((d2 - d2_p)[fin].abs().max())
+        differ = int((idx != idx_p).sum())
+        ms = cuda_ms(kernel, 20)
+        pms = cuda_ms(eager, 5)
+        launches_k = _kernel_launches(kernel)
+        launches_e = _kernel_launches(eager)
+        nb = (KNN_ROW_BYTES * C + KNN_BUCKET_BYTES * grid.table_size
+              + KNN_QUERY_BYTES * KNN_Q + KNN_OUT_BYTES * KNN_Q * KNN_K)
+        bms, by = bound(nb, 0)
+        print(f"[knn] {key}: C {C}, table {grid.table_size}, Q {KNN_Q}, k "
+              f"{KNN_K}, cap {KNN_CAP}: found {float(fin.float().mean()):.4f}"
+              f" of the neighbours; distances equal to the eager chain's "
+              f"bit for bit: {same} (max_abs_err {err:.3g}); rows that "
+              f"differ {differ}; {ms:.4f} ms (eager {pms:.4f} ms, "
+              f"bound {bms:.4f} ms by {by}); launches {launches_k} (eager "
+              f"{launches_e}); memory rise {rises[0]:.2f} MiB (eager "
+              f"{rises[1]:.2f} MiB)")
+        if not same or differ:
+            raise AssertionError(f"kernel K's neighbours differ from the "
+                                 f"eager chain's ({key})")
+        results[key] = dict(kernel="knn_hash", max_abs_err=err, ms=ms,
+                            plain_ms=pms, bound_ms=bms, bound_by=by,
+                            library_ms=None)
+        del grid, queries, means, log_scales, alive, d2, idx, d2_p, idx_p
     torch.cuda.synchronize()
 
 
@@ -3160,6 +3245,7 @@ def main() -> int:
                   f"bound {bms:.4f} ms by {by})")
         project_kernels(ctx, frames, cam, dev, results)
         bin_kernels(ctx, frames, cam, rcfg, rcfg_track, dev, results)
+        knn_kernels(dev, results)
     flips = {t: r["flipped"] for t, r in inputs.items()}
     print(f"pixels over tolerance per input (threshold flips): {flips}")
     del g, b, dg, d_exp, seg, seg_p, abs_sum, lib_in, rec, dg_rows, pos
@@ -3403,6 +3489,8 @@ def main() -> int:
     for path_name, launches in paths:
         for kname in SOURCES:
             if path_name in forward_only and kname != "composite_fwd":
+                continue
+            if path_name in ISO_FREE_PATHS and kname == "knn_hash":
                 continue
             if not any(k.startswith(kname) and n > 0
                        for k, n in launches.items()):

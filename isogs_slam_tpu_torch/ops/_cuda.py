@@ -30,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("composite", "segreduce", "project", "bin")
+SOURCES = ("composite", "segreduce", "project", "bin", "knn")
 
 LAUNCHES: dict = {}
 _LIBS: dict = {}
@@ -59,6 +59,10 @@ SIGNATURES = {
         "bin_count": [_P, _P, _I, _P, _P, _I, _F, _I, _I, _P, _P],
         "bin_expand": [_P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _I, _I, _L,
                        _L, _P, _P, _P],
+    },
+    "knn": {
+        "knn_hash": [_P, _I, _P, _P, _L, _P, _P, _P, _P, _L, _I, _I, _P,
+                     _P, _P],
     },
 }
 

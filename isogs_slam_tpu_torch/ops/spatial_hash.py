@@ -4,7 +4,10 @@ isogs_slam_tpu/ops/spatial_hash.py).
 build: hash each point's integer cell into a power-of-two table, sort point
 ids by hash (stable), bucket ranges from a histogram + cumsum.
 query: up to `cap` candidates from each of the 27 neighbouring cells, hash
-collisions rejected by comparing packed cell coords, exact top-k.
+collisions rejected by comparing packed cell coords, exact top-k. On the
+card kernel K (csrc/knn.cu) answers it with only the [Q, k] outputs in
+memory; elsewhere the plain eager chain (knn_hash_plain) does, which lays
+out every query's 27 cap candidates.
 
 The reference hashes in int32 with wrap-around products; here the
 products are int64 and the hash keeps the low bits (& table_size-1), which
@@ -17,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import spans
+from . import _cuda
 
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
 
@@ -88,10 +92,66 @@ def build_hash_grid(points, alive, cell_size, table_size: int = 0
                     points=points[order].to(torch.float32))
 
 
+# the most neighbours kernel K keeps a query (one warp's lanes)
+KNN_KMAX = 32
+
+
 def knn_hash(grid: HashGrid, queries, k: int, cap: int = 24):
     """K nearest hashed points of queries [Q, 3]: (sq_dists [Q, k],
-    indices [Q, k] into the original point array). Missing neighbours
-    have sq_dist = +inf."""
+    indices [Q, k] into the original point array), ascending. Missing
+    neighbours have sq_dist = +inf (their rows are arbitrary). Kernel K on
+    CUDA tensors, else the plain chain; counted by path in the tracer's
+    `iso.knn.kernel` / `iso.knn.eager`."""
+    with spans.fine("iso.knn"):
+        if queries.is_cuda:
+            spans.count("iso.knn.kernel")
+            return knn_hash_cuda(grid, queries, k, cap)
+        spans.count("iso.knn.eager")
+        return knn_hash_plain(grid, queries, k, cap)
+
+
+def knn_hash_cuda(grid: HashGrid, queries, k: int, cap: int = 24):
+    """Kernel K: knn_hash_plain's answer on the card, bit for bit, for k
+    <= KNN_KMAX: tied and missing neighbours in the order and with the
+    rows that torch.topk gives them there. The queries' cells are
+    floor(q / cell_size) with the grid's cell size as a float32 on the
+    card, as default_cell_size gives it."""
+    if k > KNN_KMAX:
+        raise ValueError(f"knn_hash on the card keeps at most {KNN_KMAX} "
+                         f"neighbours a query (k={k}); use "
+                         f'knn_method="exact" for more')
+    if k < 1 or cap < 1:
+        raise ValueError(f"knn_hash needs k >= 1 and cap >= 1 (k={k}, "
+                         f"cap={cap})")
+    if queries.dtype != torch.float32:
+        raise TypeError(f"queries must be float32, got {queries.dtype}")
+    dev = queries.device
+    Q = queries.shape[0]
+    q = queries.contiguous()
+    cell = torch.as_tensor(grid.cell_size, dtype=torch.float32,
+                           device=dev).reshape(())
+    pts = grid.points.contiguous()
+    order, cell_of = grid.order.contiguous(), grid.cell_of.contiguous()
+    starts, ends = grid.starts.contiguous(), grid.ends.contiguous()
+    if not all(t.dtype == torch.int64 for t in (order, cell_of, starts,
+                                                ends)):
+        raise TypeError("the grid's order, cell_of, starts and ends must "
+                        "be int64")
+    d2 = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((Q, k), dtype=torch.int64, device=dev)
+    err = _cuda.library("knn").knn_hash(
+        _cuda.ptr(q), Q, _cuda.ptr(pts), _cuda.ptr(order), order.shape[0],
+        _cuda.ptr(cell_of), _cuda.ptr(starts), _cuda.ptr(ends),
+        _cuda.ptr(cell), grid.table_size, cap, k, _cuda.ptr(d2),
+        _cuda.ptr(idx), _cuda.stream_ptr())
+    _cuda.check(err, "knn_hash")
+    _cuda.count_launch("knn_hash")
+    return d2, idx
+
+
+def knn_hash_plain(grid: HashGrid, queries, k: int, cap: int = 24):
+    """knn_hash as an eager chain over [Q, 27 cap] candidate tensors (the
+    counterpart of the reference's query, op for op)."""
     dev = queries.device
     Q = queries.shape[0]
     qcells = _cell_coords(queries, grid.cell_size)

@@ -867,3 +867,176 @@ def test_bin_counters_tracking_and_mapping(dev):
     assert _cuda.LAUNCHES.get("bin_expand") == 3
     assert tracer.counters.get("render.bin.kernel") == 3
     assert "render.bin.eager" not in tracer.counters
+
+
+# kernel K (csrc/knn.cu): the iso term's hash-grid K-nearest query
+from test_torch_knn import (CASES as KNN_CASES,  # noqa: E402
+                            assert_knn_matches, card_order, card_topk,
+                            contract_knn, planted_grid, position_rows)
+
+
+@pytest.mark.parametrize("R", [72, 32768], ids=["one_block", "multi_block"])
+def test_card_topk_tie_order(dev, R):
+    """torch.topk on the card (one block a row, and ATen's multi-block
+    selection at the iso pool's 32,768 rows) orders tied values as
+    tests/test_torch_knn.py's card_topk says, which kernel K follows."""
+    rng = np.random.default_rng(R)
+    vals = -rng.integers(0, 40, (R, 648)).astype(np.float32)
+    vals[: R // 4, 100:] = -np.inf
+    v, i = torch.topk(torch.as_tensor(vals, device=dev), 16, dim=1)
+    want_v, want_i = card_topk(vals, 16)
+    assert np.array_equal(v.cpu().numpy(), want_v)
+    assert np.array_equal(i.cpu().numpy(), want_i)
+
+
+@pytest.mark.parametrize("case", KNN_CASES)
+def test_knn_kernel_k_matches_plain_on_planted_grids(dev, case):
+    """Kernel K and the eager chain on the card against the contract, on
+    the toy grids that plant its rules: the distances bit for bit (summed
+    as the card's reduction sums 3 values) and the rows, tied and missing
+    neighbours in the order and with the rows the card's topk gives them
+    (card_order)."""
+    from isogs_slam_tpu_torch.ops import spatial_hash as SH
+    grid, queries, k, cap = planted_grid(case, device=dev)
+    _cuda.reset_launches()
+    d2, idx = SH.knn_hash_cuda(grid, queries, k, cap)
+    d2_p, idx_p = SH.knn_hash_plain(grid, queries, k, cap)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES.get("knn_hash") == 1
+    assert d2.dtype == torch.float32 and idx.dtype == torch.int64
+    cands = contract_knn(grid, queries, k, cap, sum_order="acb")
+    assert_knn_matches(d2, idx, cands, k)
+    want_d, want_i = card_order(cands, k, position_rows(grid, queries, cap))
+    for got_d, got_i in ((d2, idx), (d2_p, idx_p)):
+        got_d, got_i = got_d.cpu().numpy(), got_i.cpu().numpy()
+        assert np.array_equal(got_d.view(np.int32), want_d.view(np.int32))
+        assert np.array_equal(got_i, want_i)
+
+
+def _knn_surface(dev, C, seed=0):
+    """A map of C rows shaped like the iso pool's: 57% alive on a wavy
+    2 x 2 m surface with 3-6 mm scales (a few rows per cell of 2.5 x the
+    median scale), the rest dead, and the pool's 32,768 query rows."""
+    from isogs_slam_tpu_torch.ops.iso_loss import sample_pool_queries
+    g = torch.Generator(device=dev).manual_seed(seed)
+    uv = torch.rand((C, 2), generator=g, device=dev) * 2 - 1
+    z = 0.1 * torch.sin(3 * uv[:, 0]) * torch.cos(2 * uv[:, 1])
+    means = torch.stack([uv[:, 0], uv[:, 1], z], -1)
+    log_scales = torch.log(0.003 + 0.003 * torch.rand(
+        (C, 3), generator=g, device=dev))
+    alive = torch.arange(C, device=dev) < int(0.57 * C)
+    q_idx = sample_pool_queries(alive, 32768, g)
+    return means, log_scales, alive, q_idx
+
+
+def _d2_of(points, queries, idx):
+    """|p - q|^2 of rows idx [Q, k] summed as the card's reduction sums 3
+    values, (dx^2 + dz^2) + dy^2."""
+    d = points[idx] - queries[:, None, :]
+    sq = d * d
+    return (sq[..., 0] + sq[..., 2]) + sq[..., 1]
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("C", [524_288, 1_245_184])
+def test_knn_kernel_k_at_the_cells_shapes(dev, C, sparse):
+    """At each cell's capacity (tum.handheld 524,288, replica.orbit
+    1,245,184), the pool's 32,768 queries, k = 16, cap = 24, on the dense
+    surface and on one thinned to ~60,000 live rows (a third of the
+    queries short of neighbours): K's distances and rows equal the eager
+    chain's bit for bit, and the call's memory rises by under 16 MiB (its
+    outputs)."""
+    from isogs_slam_tpu_torch.ops import spatial_hash as SH
+    means, log_scales, alive, q_idx = _knn_surface(dev, C)
+    if sparse:
+        keep = round(int(alive.sum()) / 60_000)
+        alive = alive & (torch.arange(C, device=dev) % keep == 0)
+        q_idx = q_idx[alive[q_idx]]
+    cell = SH.default_cell_size(log_scales, alive)
+    grid = SH.build_hash_grid(means, alive, cell)
+    queries = means[q_idx]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d2, idx = SH.knn_hash_cuda(grid, queries, 16, 24)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert rise < 16 * 2 ** 20, rise
+    d2_p, idx_p = SH.knn_hash_plain(grid, queries, 16, 24)
+    assert torch.equal(d2.view(torch.int32), d2_p.view(torch.int32))
+    assert torch.equal(idx, idx_p)
+    fin = torch.isfinite(d2)
+    short = float((~fin).any(1).float().mean())
+    assert (0.05 < short < 0.95) if sparse else short < 0.05, short
+    assert torch.equal(_d2_of(means, queries, idx)[fin], d2[fin])
+    assert bool(alive[idx[fin]].all())
+
+
+def test_knn_kernel_k_pool_gives_the_eager_iso_loss(dev):
+    """The iso loss, mean density and gradients from K's pool equal those
+    from the eager chain's pool bit for bit at tum.handheld's shape, on a
+    surface sparse enough that about a third of the queries miss
+    neighbours."""
+    from isogs_slam_tpu_torch.ops import spatial_hash as SH
+    from isogs_slam_tpu_torch.ops.iso_loss import (IsoKnnPool,
+                                                   iso_surface_loss)
+    C = 524_288
+    means, log_scales, alive, q_idx = _knn_surface(dev, C, seed=1)
+    # every 5th row alive: buckets thin out and queries run short
+    alive = alive & (torch.arange(C, device=dev) % 5 == 0)
+    q_idx = q_idx[alive[q_idx]]
+    g = torch.Generator(device=dev).manual_seed(2)
+    rots = torch.randn((C, 4), generator=g, device=dev)
+    op = torch.randn((C, 1), generator=g, device=dev)
+    cell = SH.default_cell_size(log_scales, alive)
+    grid = SH.build_hash_grid(means, alive, cell)
+    pools = []
+    for fn in (SH.knn_hash_cuda, SH.knn_hash_plain):
+        d2, nbr = fn(grid, means[q_idx], 16, 24)
+        pools.append(IsoKnnPool(q_idx=q_idx, nbr=nbr,
+                                nbr_ok=torch.isfinite(d2)))
+    assert torch.equal(pools[0].nbr_ok, pools[1].nbr_ok)
+    short = (~pools[0].nbr_ok).any(1).float().mean()
+    assert 0.05 < float(short) < 0.95, float(short)
+    sel = torch.randint(0, q_idx.shape[0], (8192,), generator=g, device=dev)
+
+    def run(pool):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (means, rots, log_scales, op)]
+        loss, dens = iso_surface_loss(*leaves, alive, pool, sel=sel)
+        return [loss.detach(), dens.detach()] + list(
+            torch.autograd.grad(loss, leaves))
+
+    a, b = run(pools[0]), run(pools[1])
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_knn_kernel_k_counters_on_the_pool_path(dev):
+    """A mapping phase's iso pool (build_phase_iso) on the card goes
+    through K: one launch, `iso.knn.kernel` counted and `iso.knn.eager`
+    never."""
+    from isogs_slam_tpu_torch.core.gaussians import GaussianParams
+    from isogs_slam_tpu_torch.slam.losses import LossConfig
+    from isogs_slam_tpu_torch.slam.mapping import build_phase_iso
+    from isogs_slam_tpu_torch.utils import spans
+    means, log_scales, alive, _ = _knn_surface(dev, 65_536)
+    n = means.shape[0]
+    params = GaussianParams(
+        means3d=means, rgb_colors=torch.rand((n, 3), device=dev),
+        unnorm_rotations=torch.randn((n, 4), device=dev),
+        logit_opacities=torch.zeros((n, 1), device=dev),
+        log_scales=log_scales)
+    lcfg = LossConfig(tracking=False, use_sil_for_loss=False, sil_thres=0.5,
+                      use_l1=True, ignore_outlier_depth_loss=False,
+                      w_im=0.5, w_depth=1.0, iso_pool_size=4096)
+    tracer = spans.Tracer()
+    _cuda.reset_launches()
+    with spans.use(tracer):
+        grid, pool = build_phase_iso(params, alive, lcfg,
+                                     torch.Generator(device=dev))
+    torch.cuda.synchronize()
+    assert pool.nbr.shape == (4096, 16)
+    assert _cuda.LAUNCHES.get("knn_hash") == 1
+    assert tracer.counters.get("iso.knn.kernel") == 1
+    assert "iso.knn.eager" not in tracer.counters

@@ -255,9 +255,10 @@ def test_run_counts_its_tracking_iterations(tmp_path):
     slam = SLAM(cfg, dataset=ds)
     slam.run()
     # on the CPU every binning takes the eager chain (kernel pair Q's plain
-    # version), 13 binnings in this run
+    # version), 13 binnings in this run, and each mapping phase's iso pool
+    # the hash KNN's (kernel K's plain version), 3 phases
     want = {"tracking.iters": 8, "tracking.doubled": 2,
-            "render.bin.eager": 13}
+            "render.bin.eager": 13, "iso.knn.eager": 3}
     assert spans.FINISHED[-1]["counters"] == want
     assert slam.stats["tracking_iters_run"] == [4, 4]
     with open(os.path.join(slam.output_dir, "runtime_stats.json")) as f:
